@@ -1,0 +1,138 @@
+"""KPM machinery: Chebyshev moments, damping kernels and series
+reconstruction (port of the KPM parts of spindynamics_tpu/solvers/chebyshev.py).
+
+The two reference normalization conventions stay explicit in
+`kpm_reconstruct(..., doubling=..., density_2_over_a=...)`. The series is
+evaluated with T_n(x) = cos(n arccos x), exact for |x| <= 1, as one matrix
+product.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .lanczos import _default_compensated, _inner_c
+
+__all__ = [
+    "rescaling_params",
+    "chebyshev_moments",
+    "jackson_kernel",
+    "lorentz_kernel",
+    "get_kernel",
+    "kpm_reconstruct",
+]
+
+
+def rescaling_params(Emin: float, Emax: float, safety: float = 1.0):
+    """(a, b) with H_tilde = (H - b)/a."""
+    a = (Emax - Emin) / 2.0 * safety
+    b = (Emax + Emin) / 2.0
+    return float(a), float(b)
+
+
+def _moment_scan(matvec_rescaled: Callable, phi, M: int, chi,
+                 compensated: bool = False) -> torch.Tensor:
+    """mu_n = <chi| T_n(H~) |phi> for n = 0..M-1, one matvec per moment."""
+    mus = [_inner_c(chi, phi, compensated)]
+    v_prev, v_curr = phi, matvec_rescaled(phi)
+    mus.append(_inner_c(chi, v_curr, compensated))
+    for _ in range(M - 2):
+        v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
+        mus.append(_inner_c(chi, v_next, compensated))
+        v_prev, v_curr = v_curr, v_next
+    return torch.stack(mus)[:M]
+
+
+def _moment_scan_doubled(matvec_rescaled: Callable, phi, M: int,
+                         compensated: bool = False) -> torch.Tensor:
+    """mu_0..mu_{M-1} via the product identities
+    mu_{2n} = 2 <T_n|T_n> - mu_0, mu_{2n+1} = 2 <T_{n+1}|T_n> - mu_1."""
+    half = (M + 1) // 2  # need T_0..T_half
+    mu0 = _inner_c(phi, phi, compensated)
+    v_prev, v_curr = phi, matvec_rescaled(phi)
+    mu1 = _inner_c(phi, v_curr, compensated)
+    mus = [mu0, mu1]
+    for _ in range(max(half, 1)):  # n = 1..half: mu_2..mu_{2 half + 1}
+        v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
+        mus.append(2.0 * _inner_c(v_curr, v_curr, compensated) - mu0)
+        mus.append(2.0 * _inner_c(v_next, v_curr, compensated) - mu1)
+        v_prev, v_curr = v_curr, v_next
+    return torch.stack(mus)[:M]
+
+
+def chebyshev_moments(matvec_rescaled, phi, M: int,
+                      doubling_trick: bool = False,
+                      compensated: bool | None = None) -> torch.Tensor:
+    """Diagonal KPM moments mu_n = <phi|T_n(H~)|phi>.
+
+    doubling_trick=True produces M moments from ~M/2 matvecs through the
+    product identities (see _moment_scan_doubled)."""
+    if compensated is None:
+        compensated = _default_compensated(phi.dtype)
+    if not doubling_trick:
+        return _moment_scan(matvec_rescaled, phi, M, phi, compensated)
+    return _moment_scan_doubled(matvec_rescaled, phi, M, compensated)
+
+
+def jackson_kernel(M: int) -> np.ndarray:
+    """Jackson damping g_n."""
+    n = np.arange(M)
+    d = np.pi / (M + 1)
+    return ((M - n + 1) * np.cos(d * n) + np.sin(d * n) / np.tan(d)) / (M + 1)
+
+
+def lorentz_kernel(M: int, lam: float = 3.0) -> np.ndarray:
+    """Lorentz damping."""
+    n = np.arange(M)
+    return np.sinh(lam * (1.0 - n / M)) / np.sinh(lam)
+
+
+def get_kernel(M: int, kernel: str = "jackson") -> np.ndarray:
+    if kernel == "jackson":
+        return jackson_kernel(M)
+    if kernel == "lorentz":
+        return lorentz_kernel(M)
+    if kernel in (None, "none"):
+        return np.ones(M)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def kpm_reconstruct(mu, omega, a: float, b: float, kernel: str = "jackson",
+                    doubling: bool = True, density_2_over_a: bool = False,
+                    clamp: float | None = 0.999, clip_nonneg: bool = True
+                    ) -> torch.Tensor:
+    """S(omega) from (damped) moments, in mu's dtype and on its device.
+
+    Conventions: kpm_sw (doubling=True, density_2_over_a=False, x clamped to
+    +-0.999) and evaluate_chebyshev_series (doubling=False,
+    density_2_over_a=True, zero outside |x| >= 1). mu may be batched
+    [..., M]; omega is [W]. Returns [..., W]."""
+    mu = torch.as_tensor(mu)
+    M = mu.shape[-1]
+    dtype, dev = mu.dtype, mu.device
+    g = torch.as_tensor(get_kernel(M, kernel), dtype=dtype, device=dev)
+    fac = torch.ones(M, dtype=dtype, device=dev)
+    if doubling:
+        fac[1:] = 2.0
+    mu_d = mu * g * fac
+    omega = torch.as_tensor(np.asarray(omega), dtype=dtype, device=dev)
+    x = (omega - b) / a
+    inside = torch.abs(x) < 1.0
+    if clamp is not None:
+        x = torch.clamp(x, -clamp, clamp)
+    theta = torch.arccos(torch.clamp(x, -1.0, 1.0))
+    n = torch.arange(M, dtype=dtype, device=dev)
+    T = torch.cos(torch.outer(theta, n))  # [W, M]
+    S = mu_d @ T.T
+    tiny = torch.finfo(dtype).tiny
+    S = S / (np.pi * torch.sqrt(torch.clamp(1.0 - x * x, min=tiny)))
+    if density_2_over_a:
+        S = S * (2.0 / a)
+    if clamp is None:
+        S = torch.where(inside, S, torch.zeros_like(S))
+    if clip_nonneg:
+        S = torch.clamp(S, min=0.0)
+    return S

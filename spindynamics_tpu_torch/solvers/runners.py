@@ -1,0 +1,199 @@
+"""Ground state and KPM S(q, omega) entry points on the sector_kron layout
+(port of the kron parts of spindynamics_tpu/solvers/runners.py).
+
+groundstate_kron: restarted two-pass Lanczos (+ Chebyshev-filter polish) on
+BlockVec states, every H apply through KronHamiltonian (K1 on CUDA when
+fused; float32 only). kpm_sqw_kron: Chebyshev moments of S^z_q|psi0> held as
+two real planes, through the same apply.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.kron_group import KronHamiltonian
+from ..ops.sector_kron import apply_H_sector_kron, make_sector_kron_layout
+from ..utils.compensated import vdot2
+from .blockvec import BlockVec, bv_random
+
+__all__ = ["groundstate_kron", "kpm_sqw_kron"]
+
+
+def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
+                     target_residual: float | None = 1e-3,
+                     generator: torch.Generator | None = None,
+                     fused: bool = True, dtype: torch.dtype | None = None,
+                     device="cpu", v0: BlockVec | None = None):
+    """Ground state of a sector_kron model in BlockVec form.
+
+    The apply is K1 (`fused`, float32) or the plain blocks apply. K1 takes
+    float32 states only: on the CPU a `fused` solve in another dtype runs
+    the plain blocks apply, as in the JAX package; on CUDA it raises (pass
+    fused=False or dtype=torch.float32). The start is `v0` (copied, e.g. a
+    numpy-made start through utils.convert.blockvec_from_numpy) or a random
+    BlockVec from `generator` (default: seed 0 on `device`). Returns (E0,
+    psi, info, layout)."""
+    if dtype is None:
+        dtype = model.dtype
+    device = torch.device(device)
+    if fused and dtype != torch.float32:
+        if device.type == "cuda":
+            raise ValueError(f"fused=True runs K1, which takes float32 "
+                             f"states, not {dtype}: pass fused=False or "
+                             "dtype=torch.float32")
+        fused = False
+    lay = make_sector_kron_layout(model, model.kron_splits, model.kron_pads)
+    mv = KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
+    if v0 is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        v0 = bv_random(lay, generator, dtype, device)
+    else:
+        # the solver normalizes its start in place
+        v0 = BlockVec([l.to(device=device, dtype=dtype, copy=True)
+                       for l in v0.leaves])
+    finalize = _make_bucketed_finalize(lay, mv.tables)
+    from .lanczos import lanczos_groundstate_restarted
+
+    E0, psi, info = lanczos_groundstate_restarted(
+        mv, v0, lanc_m=lanc_m, cycles=cycles,
+        target_residual=target_residual, finalize=finalize)
+    return E0, psi, info, lay
+
+
+def _make_bucketed_finalize(layout, tables, n_buckets: int = 4):
+    """Memory-lean Ritz finalize for BlockVec kron states.
+
+    Normalizes psi in place, then two sweeps over group buckets with the
+    group-filtered plain apply: sweep 1 accumulates E = <psi|H|psi>, sweep 2
+    ||(H psi)_g - E psi_g||^2. Peak memory is psi + one bucket of outputs.
+    Kept from the JAX package, where a full H psi beside psi brushed the
+    16 GB ceiling at L=32; on 80 GB it stays for parity."""
+    n_groups = len(layout.groups)
+    edges = np.linspace(0, n_groups, n_buckets + 1).astype(int)
+    buckets = [tuple(range(edges[i], edges[i + 1])) for i in range(n_buckets)
+               if edges[i] < edges[i + 1]]
+
+    def finalize(matvec, psi_unnorm):
+        del matvec
+        leaves = list(psi_unnorm.leaves)
+        del psi_unnorm
+        nrm = torch.sqrt(torch.clamp(sum(vdot2(x, x) for x in leaves),
+                                     min=0.0))
+        inv = 1.0 / nrm
+        for x in leaves:
+            x.mul_(inv.to(x.dtype))
+        E = 0
+        for b in buckets:
+            h = apply_H_sector_kron(leaves, None, layout, tables,
+                                    group_filter=b)
+            E = E + sum(vdot2(leaves[g], h[g]) for g in b)
+        r2 = 0
+        for b in buckets:
+            h = apply_H_sector_kron(leaves, None, layout, tables,
+                                    group_filter=b)
+            r2 = r2 + sum(vdot2(h[g] - leaves[g] * E, h[g] - leaves[g] * E)
+                          for g in b)
+        resid = torch.sqrt(torch.clamp(r2, min=0.0))
+        return BlockVec(leaves), E, resid
+
+    return finalize
+
+
+def _phi_planes(leaves, weights):
+    """phi = S^z_q psi as (re, im) plane leaves + per-plane ||.||^2."""
+    from ..observables_kron import bv_sz_q_apply
+
+    pr, pi = bv_sz_q_apply(BlockVec(leaves), weights)
+    n2r = sum(torch.dot(x.reshape(-1), x.reshape(-1)) for x in pr.leaves)
+    n2i = sum(torch.dot(x.reshape(-1), x.reshape(-1)) for x in pi.leaves)
+    return pr.leaves, pi.leaves, n2r, n2i
+
+
+def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
+                 cycles: int = 6, target_residual: float | None = 1e-3,
+                 kernel: str = "jackson",
+                 generator: torch.Generator | None = None, bounds_m: int = 40,
+                 doubling_trick: bool = True, fused: bool = True,
+                 psi0: BlockVec | None = None, E0=None, info=None,
+                 safety: float = 0.01, bounds=None, device=None):
+    """T=0 dynamic structure factor S(q, omega) at kron BlockVec scale.
+
+    Ground state via groundstate_kron (unless psi0 and E0 are given), then
+    per q: phi_q = S^z_q|psi0> as (re, im) REAL planes, normalized, and the
+    diagonal Chebyshev moments of each plane through the same apply
+    (T_n(H~) is real symmetric, so the plane moments add). Spectral bounds:
+    Emin = E0, Emax from one Lanczos run from a random start (seed 7),
+    expanded by `safety`; or `bounds=(lo, hi)` as given. Everything runs in
+    float32. The q-points run serially (peak memory independent of
+    len(q_list)); kept from the JAX package for parity.
+
+    `device` defaults to psi0's device, else the CPU. Returns (S [nq,
+    n_omega] numpy, info dict with E0/bounds/a/b)."""
+    from .chebyshev import chebyshev_moments, kpm_reconstruct
+    from .lanczos import lanczos_iteration, tridiag_eigh
+    from ..observables_kron import bv_sz_q_weights
+
+    if device is None:
+        device = psi0.device if psi0 is not None else "cpu"
+    device = torch.device(device)
+    if psi0 is None or E0 is None:
+        E0, psi0, info, lay = groundstate_kron(
+            model, lanc_m=lanc_m, cycles=cycles,
+            target_residual=target_residual, generator=generator,
+            fused=fused, device=device)
+    else:
+        lay = make_sector_kron_layout(model, model.kron_splits,
+                                      model.kron_pads)
+    info = dict(info or {})
+    mv = KronHamiltonian(lay, dtype=torch.float32, device=device, fused=fused)
+
+    if bounds is None:
+        g7 = torch.Generator(device=device).manual_seed(7)
+        fac = lanczos_iteration(mv, bv_random(lay, g7, torch.float32, device),
+                                bounds_m)
+        evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+        lo, hi = min(float(evals.min()), float(E0)), float(evals.max())
+        pad = safety * 0.5 * (hi - lo) + 1e-6
+    else:
+        (lo, hi), pad = bounds, 0.0
+    a = (hi - lo + 2 * pad) / 2.0
+    b = (hi + lo) / 2.0
+    a_inv = torch.tensor(1.0 / a, dtype=torch.float32, device=device)
+    bb = torch.tensor(b, dtype=torch.float32, device=device)
+
+    def mvr(bv):
+        return (mv(bv) - bv * bb) * a_inv
+
+    psi0 = BlockVec([l.to(device=device, dtype=torch.float32)
+                     for l in psi0.leaves])
+    hi_lens = [l.shape[0] for l in psi0.leaves]
+
+    S_rows, n2s = [], []
+    for q in q_list:
+        phi_r, phi_i, n2r, n2i = _phi_planes(
+            psi0.leaves, bv_sz_q_weights(lay, float(q), hi_lens))
+        n2 = float(n2r) + float(n2i)
+        n2s.append(n2)
+        if n2 <= 0.0:
+            S_rows.append(np.zeros(kpm_m, np.float32))  # placeholder row
+            continue
+        inv = torch.tensor(1.0 / np.sqrt(n2), dtype=torch.float32,
+                           device=device)
+        mu = (chebyshev_moments(mvr, BlockVec(phi_r) * inv, kpm_m,
+                                doubling_trick=doubling_trick)
+              + chebyshev_moments(mvr, BlockVec(phi_i) * inv, kpm_m,
+                                  doubling_trick=doubling_trick))
+        S_rows.append(mu.cpu().numpy().astype(np.float32))
+
+    om = np.asarray(omega, np.float64) + float(E0)
+    S = np.zeros((len(q_list), len(np.atleast_1d(omega))), np.float32)
+    for i, (mu_row, n2) in enumerate(zip(S_rows, n2s)):
+        if n2 <= 0.0:
+            continue
+        S[i] = kpm_reconstruct(torch.as_tensor(mu_row), om, a, b,
+                               kernel=kernel, doubling=True,
+                               density_2_over_a=False).numpy()
+    info.update(E0=float(E0), bounds=(lo - pad, hi + pad), a=a, b=b)
+    return S, info

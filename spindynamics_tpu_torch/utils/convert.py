@@ -1,0 +1,52 @@
+"""Carry models and states between the JAX package and the port, as numpy.
+
+A JAX SpinModel's couplings (np.asarray of its fields) rebuild the same model
+here; BlockVec leaves go across as a list of numpy arrays, e.g. a JAX ground
+state `[np.asarray(l) for l in psi.leaves]` fed to the port's kpm_sqw_kron.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..model import _TORCH_DTYPES, SpinModel, build_model
+from ..solvers.blockvec import BlockVec
+
+__all__ = ["model_from_numpy", "model_from_jax_arrays",
+           "blockvec_from_numpy", "blockvec_to_numpy"]
+
+
+def model_from_numpy(L: int, nup: int, hop_sites, hop_J, field, zz_sites,
+                     zz_J, splits, dtype: torch.dtype | None = None
+                     ) -> SpinModel:
+    """Port model from a JAX SpinModel's couplings passed as numpy: bond
+    site pairs, their J values, the onsite field and the kron splits.
+    dtype defaults to that of hop_J."""
+    hop_J = np.asarray(hop_J)
+    zz_J = np.asarray(zz_J)
+    if dtype is None:
+        dtype = _TORCH_DTYPES[hop_J.dtype]
+    return build_model(
+        int(L), nup=int(nup),
+        hopping=[(int(i), int(j), float(J))
+                 for (i, j), J in zip(hop_sites, hop_J)],
+        onsite_field=np.asarray(field),
+        zz=[(int(i), int(j), float(J)) for (i, j), J in zip(zz_sites, zz_J)],
+        dtype=dtype, kron_splits=tuple(int(s) for s in splits))
+
+
+# the JAX model's fields arrive as numpy arrays either way
+model_from_jax_arrays = model_from_numpy
+
+
+def blockvec_from_numpy(leaves, device="cpu",
+                        dtype: torch.dtype = torch.float32) -> BlockVec:
+    """BlockVec from a list of per-group numpy arrays [C_h, C_m_pad, C_l_pad]."""
+    return BlockVec([torch.tensor(np.asarray(l), dtype=dtype, device=device)
+                     for l in leaves])
+
+
+def blockvec_to_numpy(bv: BlockVec) -> list:
+    """List of per-group numpy arrays (copied to the host)."""
+    return [l.detach().cpu().numpy() for l in bv.leaves]

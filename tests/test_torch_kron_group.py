@@ -1,0 +1,309 @@
+"""The port's kron apply against the JAX package: the plain blocks-mode
+apply in f64, K1's plain version (the CPU path of apply_H_sector_kron_fused)
+in f32 against the JAX fused apply (Pallas interpret mode) and the x64
+oracle, the axpy seed, pad slots, and an emulation of the CUDA kernel's tile
+and descriptor arithmetic. The kernel itself is tested on the card in
+tests/test_torch_cuda.py."""
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spindynamics_tpu as sd
+import spindynamics_tpu_torch as pt
+from spindynamics_tpu.ops import sector_kron as jsk
+from spindynamics_tpu.ops.pallas_kron import (
+    apply_H_sector_kron_fused as j_fused)
+from spindynamics_tpu_torch.ops import kron_group as kg
+from spindynamics_tpu_torch.ops import sector_kron as tsk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread per test process, so
+    parallel test workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _models(L, splits=None, Jz=0.7, field=True, longrange=False):
+    if longrange:
+        hop = [(i, j, 0.3 + 0.1 * (i + j)) for i in range(L)
+               for j in range(i + 1, L)]
+        zz = [(i, i + 1, 0.2) for i in range(L - 1)] + [(0, L - 1, 0.15)]
+        kw = dict(nup=L // 2, hopping=hop, zz=zz,
+                  onsite_field=np.linspace(-0.1, 0.2, L), kron_splits=splits)
+        mj = sd.build_model(L, dtype=jnp.float64, layout="sector_kron", **kw)
+        mt = pt.build_model(L, dtype=torch.float64, **kw)
+    else:
+        fld = np.linspace(-0.2, 0.3, L) if field else None
+        kw = dict(Jxy=1.0, Jz=Jz, h=fld, nup=L // 2, kron_splits=splits)
+        mj = sd.xxz_chain(L, dtype=jnp.float64, layout="sector_kron", **kw)
+        mt = pt.xxz_chain(L, dtype=torch.float64, **kw)
+    return (mj, jsk.make_sector_kron_layout(mj, mj.kron_splits),
+            mt, tsk.make_sector_kron_layout(mt, mt.kron_splits))
+
+
+def _state(mj, lay, seed):
+    """Numpy-made random state, zero on pad slots (flat, f64)."""
+    x = np.random.default_rng(seed).standard_normal(lay.n_states)
+    return np.where(np.asarray(mj.valid_mask()), x, 0.0)
+
+
+def _pads(lay):
+    """Per-group boolean masks of the tile-pad slots."""
+    out = []
+    for (_, _, _, ch, cm, cl, cmp, clp) in lay.groups:
+        m = np.ones((ch, cmp, clp), bool)
+        m[:, :cm, :cl] = False
+        out.append(m)
+    return out
+
+
+TERMS = ["all", "diag", "lo", "mid", "hi", "cross", "crossl", "crossh",
+         "diag,lo,mid,crossl", "hi,crossh"]
+
+
+@pytest.mark.parametrize("longrange", [False, True], ids=["xxz", "longrange"])
+@pytest.mark.parametrize("terms", TERMS)
+def test_blocks_apply_matches_jax_f64(terms, longrange):
+    if longrange:
+        mj, lj, mt, lt = _models(9, splits=(3, 3, 3), longrange=True)
+    else:
+        mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
+    x = _state(mj, lj, 1)
+    yj = jsk.apply_H_sector_kron(list(jsk.flat_to_blocks(jnp.asarray(x), lj)),
+                                 None, lj, terms=terms)
+    yt = tsk.apply_H_sector_kron(tsk.flat_to_blocks(torch.as_tensor(x), lt),
+                                 None, lt, terms=terms)
+    scale = max(1.0, max(float(np.abs(np.asarray(a)).max()) for a in yj))
+    for a, b in zip(yj, yt):
+        assert b.dtype == torch.float64
+        assert np.abs(np.asarray(a) - b.numpy()).max() <= 1e-10 * scale
+
+
+def test_blocks_apply_group_filter():
+    mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
+    x = _state(mj, lj, 2)
+    keep = (0, 3, len(lj.groups) - 1)
+    yj = jsk.apply_H_sector_kron(list(jsk.flat_to_blocks(jnp.asarray(x), lj)),
+                                 None, lj, group_filter=keep)
+    yt = tsk.apply_H_sector_kron(tsk.flat_to_blocks(torch.as_tensor(x), lt),
+                                 None, lt, group_filter=keep)
+    scale = max(float(np.abs(np.asarray(a)).max()) for a in yj)
+    for gi, (a, b) in enumerate(zip(yj, yt)):
+        if gi in keep:
+            assert np.abs(np.asarray(a) - b.numpy()).max() <= 1e-10 * scale
+        else:  # JAX returns zero leaves, the port None
+            assert b is None and not np.any(np.asarray(a))
+
+
+@pytest.mark.parametrize("fuse_crossh", [True, False])
+@pytest.mark.parametrize("L", [12, 14])
+def test_fused_apply_matches_jax_and_x64(L, fuse_crossh):
+    mj, lj, mt, lt = _models(L)
+    x = _state(mj, lj, 0)
+    y64 = jsk.apply_H_sector_kron(jnp.asarray(x), None, lj)  # x64 oracle
+    y64 = [np.asarray(b) for b in jsk.flat_to_blocks(y64, lj)]
+    bj = jsk.flat_to_blocks(jnp.asarray(x, jnp.float32), lj)
+    yj = j_fused(bj, lj, fuse_crossh=fuse_crossh)
+    bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
+    H = pt.KronHamiltonian(lt, dtype=torch.float32, fuse_crossh=fuse_crossh)
+    n0 = kg.kernel_launch_count()
+    yt = kg.apply_H_sector_kron_fused(bt, lt, H.tables, H.calls)
+    assert kg.kernel_launch_count() == n0  # CPU tensors: the plain version
+    scale = max(float(np.abs(b).max()) for b in y64)
+    for a, b, c, pad in zip(yj, yt, y64, _pads(lt)):
+        assert b.dtype == torch.float32
+        got = b.double().numpy()
+        assert np.abs(got - np.asarray(a, np.float64)).max() < 5e-6 * scale
+        assert np.abs(got - c).max() < 5e-6 * scale
+        assert np.all(got[pad] == 0.0)
+
+
+def test_fused_top_k_and_unsupported_terms():
+    # long-range hopping gives lo|mid terms K1 does not take (multi-run mid
+    # factors): they go through _unsupported_terms; top_k=3 leaves a tail
+    mj, lj, mt, lt = _models(10, splits=(4, 3, 3), longrange=True)
+    assert any(p.unsupported for p in kg.fused_group_plans(lt))
+    x = _state(mj, lj, 4)
+    y64 = jsk.apply_H_sector_kron(jnp.asarray(x), None, lj)
+    y64 = [np.asarray(b) for b in jsk.flat_to_blocks(y64, lj)]
+    bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
+    H = pt.KronHamiltonian(lt, dtype=torch.float32, top_k=3)
+    yt = H(pt.BlockVec(bt)).leaves
+    scale = max(float(np.abs(b).max()) for b in y64)
+    for b, c in zip(yt, y64):
+        assert np.abs(b.double().numpy() - c).max() < 5e-6 * scale
+
+
+def test_axpy_seed_matches_separate():
+    mj, lj, mt, lt = _models(12)
+    x, z = _state(mj, lj, 5), _state(mj, lj, 6)
+    bx = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
+    b0 = tsk.flat_to_blocks(torch.as_tensor(z, dtype=torch.float32), lt)
+    s = torch.tensor(-0.37, dtype=torch.float32)
+    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    got = kg.apply_H_sector_kron_fused(bx, lt, H.tables, H.calls,
+                                       axpy=(s, b0))
+    want = [h + s * w for h, w in zip(
+        kg.apply_H_sector_kron_fused(bx, lt, H.tables, H.calls), b0)]
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    assert err < 2e-6 * scale
+
+
+def test_kron_hamiltonian_module():
+    mj, lj, mt, lt = _models(12)
+    x = _state(mj, lj, 7)
+    bv = pt.BlockVec(tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32),
+                                        lt))
+    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    assert H.supports_axpy and H.fused and H.top_k == 32
+    want = kg.apply_H_sector_kron_fused(bv.leaves, lt, H.tables,
+                                        H.calls)
+    for a, b in zip(H(bv).leaves, want):
+        assert torch.equal(a, b)
+    # the axpy form of forward is H bv + s bv0
+    s = torch.tensor(0.25)
+    for a, b, x in zip(H(bv, s, bv).leaves, want, bv.leaves):
+        assert float((a - (b + s * x)).abs().max()) < 2e-6 * float(
+            b.abs().max() + 1)
+    # .to() moves every table: the same apply in float64
+    H64 = H.to(torch.float64)
+    assert H64.dtype == torch.float64
+    assert all(t.dtype == torch.float64 for t in H64.buffers())
+    y64 = H64(bv.astype(torch.float64))
+    for a, b in zip(y64.leaves, want):
+        assert a.dtype == torch.float64
+        assert float((a - b.double()).abs().max()) < 5e-6 * float(
+            b.abs().max() + 1)
+    # the plain apply from f32-rounded tables: the fused path combines the
+    # diagonal vectors into D1/D2 before rounding, so the two differ at the
+    # f32 table rounding (~1e-8 here), not at f64 eps
+    Hu = pt.KronHamiltonian(lt, dtype=torch.float32, fused=False).to(
+        torch.float64)
+    assert not Hu.supports_axpy
+    for a, b in zip(Hu(bv.astype(torch.float64)).leaves, y64.leaves):
+        assert float((a - b).abs().max()) < 1e-6 * float(b.abs().max() + 1)
+
+
+# ---- the CUDA kernel's index arithmetic, emulated on the host -------------
+
+_BM, _BL = 32, 128  # csrc/kron_group.cu tile
+
+
+def _emulate_k1(d):
+    """Run kron_group.cu's grid, tiles and epilogue in numpy, reading every
+    operand through the pointers and integers of the ctypes descriptor."""
+    ch, cmp, clp = d.ch, d.cmp, d.clp
+
+    def arr(ptr, n):
+        return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)
+                                     ).astype(np.float64)
+
+    T = arr(d.T, ch * cmp * clp)
+    seed = arr(d.seed, ch * cmp * clp) if d.seed else None
+    out = np.full(ch * cmp * clp, np.nan)
+    for h in range(ch):
+        for m0 in range(0, cmp, _BM):
+            for l0 in range(0, clp, _BL):
+                acc = np.zeros((_BM, _BL))
+
+                def seg(A, lda, shift, mlo, mhi, scale, B, ldb, K):
+                    Bt = B.reshape(K, ldb)[:, l0:l0 + _BL]
+                    for r in range(_BM):
+                        m = m0 + r
+                        if mlo <= m < mhi:
+                            a = A[(m + shift) * lda:(m + shift) * lda + K]
+                            acc[r] += (a * scale) @ Bt
+
+                Th = T[h * cmp * clp:(h + 1) * cmp * clp]
+                if d.W_lo:
+                    seg(Th, clp, 0, 0, cmp, 1.0, arr(d.W_lo, clp * clp),
+                        clp, clp)
+                if d.W_mid_T:
+                    seg(arr(d.W_mid_T, cmp * cmp), cmp, 0, 0, cmp, 1.0, Th,
+                        clp, cmp)
+                for x in d.cross[:d.n_cross]:
+                    if m0 + _BM <= x.c0 or m0 >= x.c0 + x.ln:
+                        continue
+                    n = x.cmp_s * x.clp_s
+                    src = arr(x.src, ch * n)[h * n:(h + 1) * n]
+                    seg(src, x.clp_s, x.r0 - x.c0, x.c0, x.c0 + x.ln, x.val,
+                        arr(x.A, x.clp_s * clp), clp, x.clp_s)
+                for r in range(_BM):
+                    m = m0 + r
+                    if m >= cmp:
+                        break
+                    ls = slice(l0, l0 + _BL)
+                    idx = h * cmp * clp + m * clp
+                    t = T[idx + l0:idx + l0 + _BL]
+                    dg = (arr(d.D1, cmp * clp)[m * clp:][ls] if d.D1
+                          else np.zeros(_BL))
+                    if d.D2:
+                        dg = dg + arr(d.D2, ch * cmp)[h * cmp + m]
+                    if d.D3:
+                        dg = dg + arr(d.D3, ch * clp)[h * clp:][ls]
+                    v = (seed[idx + l0:idx + l0 + _BL] if seed is not None
+                         else 0.0) + t * dg + acc[r]
+                    for x in d.crossh[:d.n_crossh]:
+                        if not x.cb0 <= h < x.cb0 + x.lnb:
+                            continue
+                        srow = min(max(h + x.rb0 - x.cb0, 0), x.ch_s - 1)
+                        S = arr(x.src, x.ch_s * x.cmp_s * clp)
+                        for mr in x.mids[:x.n_mids]:
+                            if mr.ca0 <= m < mr.ca0 + mr.lna:
+                                row = (srow * x.cmp_s + mr.ra0 + m - mr.ca0)
+                                v = v + mr.val * S[row * clp:][ls]
+                    out[idx + l0:idx + l0 + _BL] = v
+    return out.reshape(ch, cmp, clp)
+
+
+@pytest.mark.parametrize("L,splits", [(16, None), (12, (5, 4, 3)),
+                                      (14, (6, 4, 4))])
+def test_k1_tile_emulation_matches_reference(L, splits):
+    """Every fused group of the layout, with and without a seed: the
+    descriptor-driven tile emulation equals K1's plain version."""
+    mj, lj, mt, lt = _models(L, splits=splits)
+    x = _state(mj, lj, 8)
+    bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
+    calls = pt.KronHamiltonian(lt, dtype=torch.float32).calls
+    n_crossh = 0
+    for gi in kg.fused_group_set(lt, tsk.default_fused_topk(lt)):
+        call = calls[gi]
+        n_crossh += len(call.crossh)
+        srcs = [bt[c[0]] for c in call.cross]
+        srcsh = [bt[c[0]] for c in call.crossh]
+        for seed in (None, bt[gi] * 0.5 + 1.0):
+            ref = kg.kron_group_apply_reference(bt[gi], seed, srcs, srcsh,
+                                                call)
+            d = call.descriptor(torch.device("cpu"))
+            d.T = bt[gi].data_ptr()
+            d.seed = None if seed is None else seed.data_ptr()
+            for i, S in enumerate(srcs):
+                d.cross[i].src = S.data_ptr()
+            for i, S in enumerate(srcsh):
+                d.crossh[i].src = S.data_ptr()
+            emu = _emulate_k1(d)
+            scale = float(ref.abs().max()) + 1.0
+            assert np.abs(emu - ref.double().numpy()).max() < 2e-6 * scale
+    assert n_crossh > 0  # the mid|hi slice adds were exercised
+
+
+def test_k1_descriptor_layout_and_refusals():
+    assert ctypes.sizeof(kg._KgDesc) == 88 + 40 * 16 + 96 * 8
+    mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
+    calls = pt.KronHamiltonian(lt, dtype=torch.float32).calls
+    with pytest.raises(ValueError, match="tables on"):
+        calls[0].descriptor(torch.device("cpu"))
+        calls[0].descriptor(torch.device("meta"))
+    # K1 takes CUDA tensors; other devices are refused, never rerouted
+    T = torch.zeros(calls[0].shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kg.kron_group_apply(T, None, [], [], calls[0])
