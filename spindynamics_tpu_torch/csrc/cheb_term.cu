@@ -1,0 +1,137 @@
+// K2: fused Chebyshev evolution term for Hopper (sm_90a), float32 states.
+//
+// Replaces the Pallas TPU kernel spindynamics_tpu/ops/pallas_cheb.py:
+// _build_term_call. One term k >= 2 of the Chebyshev-Bessel step
+// e^{-iH dt} (solvers/kron_evolve._cheb_kron_scan) for one kron group
+// [ch, cmp, clp] and both (re, im) planes of the state:
+//
+//   H_p   = K1's hi-local sum on plane p (seed, diagonal, T@W_lo,
+//           W_mid^T@T, lo|mid cross products, mid|hi slice adds)
+//   x_p   = (H_p - b * T_p) * (2 / a) - prev_p           -> next_p
+//   acc_re = acc_re + c_r * x_re - c_i * x_im            (in place)
+//   acc_im = acc_im + c_i * x_re + c_r * x_im            (in place)
+//
+// in the operation order of the TPU kernel's epilogue (pallas_cheb.py
+// :165-178), so the f32 results compare tightly with the plain version.
+//
+// Design. K1's output-tile gather (kron_tile.cuh; kron_group.cu explains
+// it), with both planes in one block: the accumulator update mixes x_re and
+// x_im at the same element, so one thread must hold both. Each block keeps
+// two register accumulators (re, im: 32 floats a thread) and runs each K
+// segment once per plane, then the epilogue computes x and the complex
+// multiply-add per element. acc is read and written by the same thread at
+// the same element (the in->out alias of pallas_cheb.py:232), so the update
+// is in place and race-free. next may be prev's storage (ops/cheb_term.py
+// reuses it from the second fused term of a step on): each element of prev
+// is read by the thread that then writes next there, and by no other. T
+// and the cross sources are read by many blocks and are never written.
+//
+// Bound. Twice K1's matrix-product flops per group (two planes) against
+// ~12 state-sized f32 streams (T, prev, acc, seed in; next, acc out, per
+// plane), so it is compute-bound on the CUDA cores like K1. A later PR can
+// share one staged W_lo tile between the planes and move the products to
+// wgmma (see kron_group.cu).
+//
+// Interface: plain C, loaded with ctypes. ct_launch takes a host pointer to
+// a CtDesc (mirrored by ctypes structures in ops/cheb_term.py) and a
+// cudaStream_t, launches on that stream and returns cudaGetLastError().
+// The four per-term scalars ride in the descriptor, passed by value: no
+// device read and no host sync per term.
+
+#include "kron_tile.cuh"
+
+struct CtDesc {
+  KgDesc re;            // the re plane as K1 sees it: out = next_re, T =
+                        // T_re, seed = seed_re, cross/crossh src = re
+                        // sources, and the group's tables
+  float* next_im;       // [ch, cmp, clp]; may be prev_im
+  const float* T_im;
+  const float* seed_im; // NULL iff re.seed is NULL
+  const float* prev_re; // may be re.out
+  const float* prev_im;
+  float* acc_re;        // read and written in place
+  float* acc_im;
+  const float* cross_src_im[KG_MAX_CROSS];
+  const float* crossh_src_im[KG_MAX_CROSSH];
+  float a_inv, b, c_r, c_i;
+};
+
+namespace {
+
+using namespace kron_tile;
+
+// One element of the epilogue: x = (h - b t) (2/a) - p for each plane,
+// then the complex coefficient update of the accumulator.
+__device__ __forceinline__ void term_element(
+    const CtDesc& c, float two_ai, float hr, float hi, float tr, float ti,
+    float pr, float pi, float& xr, float& xi, float& ar, float& ai) {
+  xr = (hr - c.b * tr) * two_ai - pr;
+  xi = (hi - c.b * ti) * two_ai - pi;
+  ar = ar + c.c_r * xr - c.c_i * xi;
+  ai = ai + c.c_i * xr + c.c_r * xi;
+}
+
+__global__ void __launch_bounds__(NT)
+cheb_term_kernel(const __grid_constant__ CtDesc c) {
+  __shared__ __align__(16) Smem sm;
+  const KgDesc& d = c.re;
+  const int l0 = blockIdx.x * BL;
+  const int m0 = blockIdx.y * BM;
+  const int h = blockIdx.z;
+
+  float acc_re[4][4], acc_im[4][4];
+  tile_products(acc_re, sm, d, d.T, [&](int k) { return d.cross[k].src; },
+                h, m0, l0);
+  tile_products(acc_im, sm, d, c.T_im,
+                [&](int k) { return c.cross_src_im[k]; }, h, m0, l0);
+
+  const float two_ai = 2.f * c.a_inv;
+  const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
+  const int l = l0 + tx * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= d.cmp) break;
+    float4 tr, ti;
+    const float4 hr = hi_local_row(
+        d, acc_re[i], d.T, d.seed, [&](int k) { return d.crossh[k].src; },
+        h, m, l, tr);
+    const float4 hi = hi_local_row(
+        d, acc_im[i], c.T_im, c.seed_im,
+        [&](int k) { return c.crossh_src_im[k]; }, h, m, l, ti);
+    const size_t idx = (size_t)h * d.cmp * d.clp + (size_t)m * d.clp + l;
+    const float4 pr = ld4(c.prev_re + idx);
+    const float4 pi = ld4(c.prev_im + idx);
+    float4 ar = ld4(c.acc_re + idx);
+    float4 ai = ld4(c.acc_im + idx);
+    float4 xr, xi;
+    term_element(c, two_ai, hr.x, hi.x, tr.x, ti.x, pr.x, pi.x, xr.x, xi.x,
+                 ar.x, ai.x);
+    term_element(c, two_ai, hr.y, hi.y, tr.y, ti.y, pr.y, pi.y, xr.y, xi.y,
+                 ar.y, ai.y);
+    term_element(c, two_ai, hr.z, hi.z, tr.z, ti.z, pr.z, pi.z, xr.z, xi.z,
+                 ar.z, ai.z);
+    term_element(c, two_ai, hr.w, hi.w, tr.w, ti.w, pr.w, pi.w, xr.w, xi.w,
+                 ar.w, ai.w);
+    *reinterpret_cast<float4*>(d.out + idx) = xr;
+    *reinterpret_cast<float4*>(c.next_im + idx) = xi;
+    *reinterpret_cast<float4*>(c.acc_re + idx) = ar;
+    *reinterpret_cast<float4*>(c.acc_im + idx) = ai;
+  }
+}
+
+}  // namespace
+
+extern "C" int ct_desc_size(void) { return (int)sizeof(CtDesc); }
+
+extern "C" int ct_launch(const CtDesc* desc, void* stream) {
+  const CtDesc& c = *desc;
+  const KgDesc& d = c.re;
+  if (!desc_ok(d) || d.out == nullptr || d.T == nullptr ||
+      c.next_im == nullptr || c.T_im == nullptr || c.prev_re == nullptr ||
+      c.prev_im == nullptr || c.acc_re == nullptr || c.acc_im == nullptr ||
+      (d.seed == nullptr) != (c.seed_im == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cheb_term_kernel<<<grid_of(d), NT, 0, static_cast<cudaStream_t>(stream)>>>(c);
+  return (int)cudaGetLastError();
+}

@@ -8,9 +8,10 @@ slice adds. The W_hi contraction (and any mid|hi term that is not fused)
 is computed in plain torch as the kernel's SEED; the tail groups (too small
 to fuse) run the plain blocks-mode apply. This is the JAX package's design.
 
-The kernel is CUDA C++ (`csrc/kron_group.cu`), built with nvcc for sm_90a on
-first use into `build/spindynamics_tpu_torch/` of the checkout and loaded
-with ctypes. `kron_group_apply_reference` is its plain torch version: the
+The kernel is CUDA C++ (`csrc/kron_group.cu`, with the tile code it shares
+with K2 in `csrc/kron_tile.cuh`), built with nvcc for sm_90a on first use
+into `build/spindynamics_tpu_torch/` of the checkout (`ops/cuda_build.py`)
+and loaded with ctypes. `kron_group_apply_reference` is its plain torch version: the
 wrapper `kron_group_apply` uses it for tensors on the CPU and only there; a
 CUDA tensor launches the kernel or raises.
 """
@@ -18,17 +19,13 @@ CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..solvers.blockvec import BlockVec
+from .cuda_build import CSRC, build_shared_library
 from .sector_kron import (
     SectorKronLayout,
     _as_tensor,
@@ -192,7 +189,7 @@ def fused_group_tables(layout: SectorKronLayout, dtype, device, memo=None):
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_MAX_CROSS, _MAX_CROSSH, _MAX_MIDS = 16, 8, 4  # csrc/kron_group.cu KG_MAX_*
+_MAX_CROSS, _MAX_CROSSH, _MAX_MIDS = 16, 8, 4  # csrc/kron_tile.cuh KG_MAX_*
 _TILE_M, _TILE_L = 8, 128  # K1 needs cmp % 8 == 0 and clp % 128 == 0
 
 
@@ -228,10 +225,8 @@ class _KgDesc(ctypes.Structure):
                 ("crossh", _KgCrossH * _MAX_CROSSH)]
 
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "kron_group.cu"
-# the checkout's build/ directory (listed in .gitignore)
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
-              / "spindynamics_tpu_torch")
+_SRC = CSRC / "kron_group.cu"
+_HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
 _LAUNCHES = 0
 
@@ -241,29 +236,9 @@ def build_kernel() -> dict:
     "seconds" (0 when the library was already built), "log" (nvcc's
     -Xptxas -v report: registers, shared memory, spills)}."""
     global _LIB
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_DIR / f"kron_group_{digest}.so"
-    info = {"path": str(so), "seconds": 0.0, "log": ""}
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not Path(nvcc).exists():
-            raise RuntimeError("nvcc not found: K1 is compiled on the machine "
-                               "that runs it")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{time.monotonic_ns()}.so")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{info['log']}")
-        tmp.replace(so)
-    if _LIB is None or _LIB._name != str(so):
-        lib = ctypes.CDLL(str(so))
+    info = build_shared_library(_SRC, _HEADERS, "K1")
+    if _LIB is None or _LIB._name != info["path"]:
+        lib = ctypes.CDLL(info["path"])
         lib.kg_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.kg_launch.restype = ctypes.c_int
         lib.kg_desc_size.argtypes = []
@@ -314,6 +289,9 @@ class _GroupCall:
         self.crossh_shapes = [shape_of(c[0]) for c in self.crossh]
         self._desc = None
         self._desc_device = None
+        # K2's descriptor (ops/cheb_term.py): a copy of this one plus the
+        # second plane's pointers, built on K2's first launch
+        self.term_desc = None
 
     def descriptor(self, device):
         if self._desc is not None:
@@ -324,8 +302,8 @@ class _GroupCall:
         ch, cmp, clp = self.shape
         if cmp % _TILE_M or clp % _TILE_L or any(
                 s[2] % _TILE_L for s in self.cross_shapes):
-            raise ValueError(f"K1 needs (8, 128) tile pads; group {self.gi} "
-                             f"is {self.shape}")
+            raise ValueError(f"K1 and K2 need (8, 128) tile pads; group "
+                             f"{self.gi} is {self.shape}")
         # lo|mid sources share the hi axis, mid|hi sources the lo axis
         if (any(s[0] != ch for s in self.cross_shapes)
                 or any(s[2] != clp for s in self.crossh_shapes)):
@@ -334,7 +312,7 @@ class _GroupCall:
         if (len(self.cross) > _MAX_CROSS or len(self.crossh) > _MAX_CROSSH
                 or any(len(c[4]) > _MAX_MIDS for c in self.crossh)):
             raise ValueError(f"group {self.gi} has more cross terms than K1 "
-                             "takes (kron_group.cu KG_MAX_*)")
+                             "takes (kron_tile.cuh KG_MAX_*)")
         d = _KgDesc()
         d.ch, d.cmp, d.clp = ch, cmp, clp
         for name in ("D1", "D2", "D3", "W_lo", "W_mid_T"):
@@ -363,16 +341,17 @@ class _GroupCall:
         return d
 
 
-def _check_tensor(x, shape, device, what):
+def _check_tensor(x, shape, device, what, kernel="K1"):
     if x.device != device:
-        raise ValueError(f"K1 {what}: on {x.device}, expected {device}")
+        raise ValueError(f"{kernel} {what}: on {x.device}, expected {device}")
     if x.dtype != torch.float32:
-        raise TypeError(f"K1 {what}: dtype {x.dtype}; K1 takes float32")
+        raise TypeError(f"{kernel} {what}: dtype {x.dtype}; {kernel} takes "
+                        "float32")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"K1 {what}: shape {tuple(x.shape)}, expected "
+        raise ValueError(f"{kernel} {what}: shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
     if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"K1 {what}: must be contiguous and 16-byte "
+        raise ValueError(f"{kernel} {what}: must be contiguous and 16-byte "
                          "aligned")
 
 

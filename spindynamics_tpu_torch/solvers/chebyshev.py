@@ -1,5 +1,6 @@
 """KPM machinery: Chebyshev moments, damping kernels and series
-reconstruction (port of the KPM parts of spindynamics_tpu/solvers/chebyshev.py).
+reconstruction, and the Chebyshev-Bessel time-step coefficients (port of
+the KPM and coefficient parts of spindynamics_tpu/solvers/chebyshev.py).
 
 The two reference normalization conventions stay explicit in
 `kpm_reconstruct(..., doubling=..., density_2_over_a=...)`. The series is
@@ -23,6 +24,7 @@ __all__ = [
     "lorentz_kernel",
     "get_kernel",
     "kpm_reconstruct",
+    "chebyshev_coefficients",
 ]
 
 
@@ -136,3 +138,17 @@ def kpm_reconstruct(mu, omega, a: float, b: float, kernel: str = "jackson",
     if clip_nonneg:
         S = torch.clamp(S, min=0.0)
     return S
+
+
+def chebyshev_coefficients(dt: float, Emin: float, Emax: float, cheb_n: int):
+    """c_k = (2 - delta_k0) (-i)^k J_k(a dt) e^{-i b dt} and (a, b) of the
+    e^{-iH dt} expansion in T_k((H - b)/a), with the 0.9999 shrink of the
+    reference (src/TimeEvolution/Chebyshev.jl:71-80). Host-side (scipy
+    Bessel J), numpy complex128."""
+    from scipy.special import jv
+
+    a = (Emax - Emin) / (2 * 0.9999)
+    b = (Emax + Emin) / 2.0
+    k = np.arange(cheb_n)
+    c = (2.0 - (k == 0)) * (-1j) ** k * jv(k, a * dt) * np.exp(-1j * b * dt)
+    return np.asarray(c, np.complex128), float(a), float(b)

@@ -26,9 +26,14 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import spindynamics_tpu_torch\n"
         "import spindynamics_tpu_torch.observables_kron\n"
+        "import spindynamics_tpu_torch.models.initial_states\n"
+        "import spindynamics_tpu_torch.ops.cheb_term\n"
+        "import spindynamics_tpu_torch.ops.cuda_build\n"
         "import spindynamics_tpu_torch.ops.kron_group\n"
         "import spindynamics_tpu_torch.solvers.chebyshev\n"
+        "import spindynamics_tpu_torch.solvers.kron_evolve\n"
         "import spindynamics_tpu_torch.utils.convert\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spindynamics_tpu'))\n"
         "assert not bad, bad\n"
@@ -39,6 +44,18 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_reads_no_environment():
+    """Routing (K1, K2, top_k, fuse_crossh) is a field of the modules, never
+    an environment read: no source of the port touches the environment."""
+    pkg = os.path.join(REPO, "spindynamics_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    src = fh.read()
+                assert "os.environ" not in src and "getenv(" not in src, f
 
 
 def _pair(case):
