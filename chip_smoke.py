@@ -1,18 +1,21 @@
 """Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths once each, through the entry points a user
+Drives the port's three paths once each, through the entry points a user
 calls: the sector_kron ground state of the Heisenberg chain in the Sz=0
 sector (groundstate_kron) and its KPM S(q, omega) (kpm_sqw_kron), with
 every H apply's fused groups through K1, the hand-written CUDA group-apply
-kernel; and the domain-wall trajectory of the XXZ chain
+kernel; the domain-wall trajectory of the XXZ chain
 (evolve_trajectory_kron), with every Chebyshev term k >= 2 through K2, the
-hand-written CUDA Chebyshev-term kernel.
+hand-written CUDA Chebyshev-term kernel; and the flat-state path on the
+embedded layout (ground state, Lanczos and KPM S(q, omega), domain-wall
+trajectory on one vector of 2^L amplitudes), with every H apply through K3,
+the hand-written CUDA fused matvec.
 
 Phases (one line each; a failed phase raises and the script exits non-zero
 with no result line):
   device   require CUDA; the card's name and power limit from nvidia-smi
-  build    compile K1 (csrc/kron_group.cu) and K2 (csrc/cheb_term.cu), one
-           nvcc each, both at once
+  build    compile K1 (csrc/kron_group.cu), K2 (csrc/cheb_term.cu) and K3
+           (csrc/fused_matvec.cu), one nvcc each, all at once
   k1       K1 against its plain torch version on the card, at L=16 (every
            group) and at --L (the fused groups), with and without the
            Lanczos axpy seed; pad slots exactly 0; warm CUDA-event times
@@ -25,11 +28,27 @@ with no result line):
            exact evolution (dense H, scipy eigh)
   evolve   --L domain-wall trajectory, 5 steps of dt=0.1, cheb_n=40
   typicality  L=20 <Sz_a(t) Sz_a(0)>_beta=1 at t = 0, 0.5, 1
-  profile  (--profile) torch.profiler kernel tables of one KPM moment step
-           and of one Chebyshev term
+  k3       K3 against its plain torch version on the card, real and complex,
+           at L=16 (the XXZ chain and an all-pairs model) and at --L-flat:
+           exact zeros outside the sector, bit-identical repeats, event
+           times of K3, the plain version and an N-sized copy; and the time
+           of one torch sparse CSR product H @ psi for the same model (at
+           L=22, and at --L-flat where the matrix fits)
+  flat-oracle  L=12 ground state and 10-step domain-wall trajectory through
+           K3 against the float64 dense oracle on the host
+  flat-main  --L-flat embedded XXZ chain, Sz=0: ground state, lanczos_sqw
+           and kpm_sqw at 3 q-points, 5-step domain-wall trajectory, and the
+           same model through the kron layout (K1, K2) as a cross-check
+  profile  (--profile) torch.profiler kernel tables of one KPM moment step,
+           of one Chebyshev term, and of flat Lanczos and Chebyshev steps
+  k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^13
 Then one JSON line with the kernel records, and last the device line.
 
-Usage: python3 chip_smoke.py [--L 28] [--profile]
+The bounds in the kernel records are the larger of bytes over 3.35 TB/s
+(each input read once, each output written once) and float32 operations
+over 67 TFLOP/s (the H100 SXM data sheet).
+
+Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--profile] [--k3-tiles]
 """
 
 from __future__ import annotations
@@ -46,6 +65,16 @@ import torch
 # docs/PARITY.md: L=16 CPU x64; L=28 and L=32 f32 ground states (physical
 # energies used as oracles, not speed figures)
 E0_REF = {16: -11.67077735, 28: -20.663187, 32: -23.661858}
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
+
+
+def _bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def _sync_time(fn):
@@ -127,9 +156,11 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
     from spindynamics_tpu_torch.ops import kron_group as kg
 
-    builds = (("K1", kg.build_kernel), ("K2", ct.build_kernel))
+    builds = (("K1", kg.build_kernel), ("K2", ct.build_kernel),
+              ("K3", fm.build_kernel))
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source
         futs = [(name, ex.submit(fn)) for name, fn in builds]
         infos = [(name, f.result()) for name, f in futs]
@@ -171,10 +202,39 @@ def _k1_inputs(L, dev):
     return m, lay, H, bv, args
 
 
+def _group_work(call, seeded, planes=1):
+    """(bytes, flops) of one fused group's kernel launch: the group's own
+    tensor read and written once (cross sources are other groups' tensors,
+    counted with their own group), the seed and the tables read once, and
+    the matrix products of the hi-local terms. K2 (planes=2) also reads
+    prev and acc and writes acc, per plane, and runs the 10-flop epilogue."""
+    ch, cmp, clp = call.shape
+    n = ch * cmp * clp
+    flops = 0
+    tab = 0
+    if call.W_lo is not None:
+        flops += 2 * n * clp
+        tab += clp * clp
+    if call.W_mid_T is not None:
+        flops += 2 * n * cmp
+        tab += cmp * cmp
+    for (_, r0, c0, ln, val), (_, cmps, clps) in zip(call.cross,
+                                                     call.cross_shapes):
+        flops += 2 * ch * ln * clps * clp
+        tab += clps * clp
+    for t in (call.D1, call.D2, call.D3):
+        tab += 0 if t is None else t.numel()
+    if planes == 1:
+        words = n * (2 + (1 if seeded else 0)) + tab
+        return 4 * words, flops + 2 * n
+    words = 2 * n * (5 + (1 if seeded else 0)) + tab
+    return 4 * words, 2 * flops + 2 * n * 10
+
+
 def phase_k1(L, dev):
     """K1 vs kron_group_apply_reference on the same CUDA tensors. Returns
-    (max abs err, max rel err, K1 ms, plain ms) for the kernel part of one
-    apply at L (sum over the fused groups)."""
+    (max abs err, max rel err, K1 ms, plain ms, bound) for the kernel part
+    of one apply at L (sum over the fused groups)."""
     from spindynamics_tpu_torch.ops import kron_group as kg
 
     m, lay, H, bv, args = _k1_inputs(L, dev)
@@ -213,7 +273,13 @@ def phase_k1(L, dev):
           f"K1 {k_ms2:.3f} ms, plain {p_ms2:.3f} ms | full apply: "
           f"KronHamiltonian(fused) {full_k:.3f} ms, plain blocks apply "
           f"{full_p:.3f} ms")
-    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2)
+    work = [_group_work(c, seed is not None)
+            for (_, seed, _, _, _, c) in args]
+    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    print(f"k1 L={L}: kernel part moves {sum(w[0] for w in work) / 1e9:.3f} "
+          f"GB and does {sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound "
+          f"{bound[0]:.3f} ms by {bound[1]}")
+    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound
 
 
 def _evolve_model(L):
@@ -226,7 +292,7 @@ def phase_k2(L, dev):
     """K2 vs cheb_term_apply_reference on the same CUDA tensors, one term
     of the evolve model at L with main-path seeds. Returns (max abs err,
     max rel err, K2 ms, plain ms) for K2's part of one term (sum over the
-    K2-fused groups)."""
+    K2-fused groups), and its bound."""
     from spindynamics_tpu_torch.ops import cheb_term as ct
     from spindynamics_tpu_torch.ops import kron_group as kg
     from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
@@ -274,6 +340,8 @@ def phase_k2(L, dev):
     p_ms = _event_ms(run(ct.cheb_term_apply_reference))
     k_ms2 = _event_ms(run(ct.cheb_term_apply))
     p_ms2 = _event_ms(run(ct.cheb_term_apply_reference))
+    work = [_group_work(a[6], a[3] is not None, planes=2) for a in args]
+    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
     del args
     a_inv, b = scal[:2]
     term_f = _event_ms(lambda: ct.cheb_term_fused(
@@ -286,8 +354,11 @@ def phase_k2(L, dev):
           f"K2/plain/K2/plain): K2 {k_ms:.3f} ms, plain {p_ms:.3f} ms, K2 "
           f"{k_ms2:.3f} ms, plain {p_ms2:.3f} ms | whole term (median of "
           f"10): fused (seeds + K2 + tail) {term_f:.3f} ms, unfused (two "
-          f"K1 applies + torch combine) {term_p:.3f} ms")
-    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2)
+          f"K1 applies + torch combine) {term_p:.3f} ms | K2 part moves "
+          f"{sum(w[0] for w in work) / 1e9:.3f} GB and does "
+          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
+          f"ms by {bound[1]}")
+    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound
 
 
 def phase_evolve_oracle(dev):
@@ -375,6 +446,408 @@ def phase_typicality(dev):
         raise RuntimeError("non-finite typicality correlation")
     if not (abs(G[0].real - 0.25) <= 1e-3 and abs(G[0].imag) <= 1e-3):
         raise RuntimeError(f"<Sz^2> at t=0 is {G[0]}, not 0.25")
+
+
+# ---------------------------------------------------------------------------
+# the flat-state path (embedded layout, K3)
+# ---------------------------------------------------------------------------
+
+
+def _flat_model(L, kind="chain"):
+    """Embedded Sz=0 models of the flat path: the XXZ chain (Jxy=1, Jz=0.5,
+    a non-uniform field when `kind` is "chain-field") or an all-pairs
+    model."""
+    import spindynamics_tpu_torch as pt
+
+    if kind == "longrange":
+        return pt.build_model(
+            L, nup=L // 2, layout="embedded",
+            hopping=pt.long_range_hopping(L, lambda i, j: 1.0 / (j - i)),
+            zz=pt.long_range_hopping(L, lambda i, j: 0.3 / (j - i) ** 2),
+            onsite_field=np.linspace(-0.2, 0.3, L))
+    h = np.linspace(-0.2, 0.3, L) if kind == "chain-field" else None
+    return pt.xxz_chain(L, Jxy=1.0, Jz=0.5, h=h, nup=L // 2,
+                        layout="embedded")
+
+
+def _flat_state(m, dev, cplx, seed):
+    """A random state in the model's sector (zero outside it)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m.n_states, generator=g, device=dev)
+    if cplx:
+        x = torch.complex(x, torch.randn(m.n_states, generator=g, device=dev))
+    return torch.where(m.valid_mask(dev), x, torch.zeros_like(x))
+
+
+def csr_hamiltonian(model, dev):
+    """H of a full or embedded model as a torch sparse CSR tensor on `dev`
+    (int32 indices, float32 values), built row by row on the device: the
+    diagonal first, then one entry per hopping bond whose two bits differ.
+    The library yardstick of K3: it is timed, never used by the port."""
+    N = model.n_states
+    s = torch.arange(N, device=dev, dtype=torch.int32)
+    bonds = [(int(i), int(j), float(J)) for i, j, J in
+             zip(model.hop_i, model.hop_j, model.hop_J)]
+    cnt = torch.ones(N, device=dev, dtype=torch.int32)
+    for i, j, _ in bonds:
+        cnt += ((s >> i) ^ (s >> j)) & 1
+    crow = torch.zeros(N + 1, device=dev, dtype=torch.int32)
+    crow[1:] = torch.cumsum(cnt, 0, dtype=torch.int32)
+    nnz = int(crow[-1])
+    col = torch.empty(nnz, device=dev, dtype=torch.int32)
+    val = torch.empty(nnz, device=dev, dtype=torch.float32)
+    pos = crow[:-1].to(torch.int64)
+    col[pos] = s
+    val[pos] = model.diag(dev, torch.float32)
+    pos = pos + 1
+    for i, j, J in bonds:
+        on = (((s >> i) ^ (s >> j)) & 1).bool()
+        p = pos[on]
+        col[p] = s[on] ^ ((1 << i) | (1 << j))
+        val[p] = J
+        pos = pos + on
+    return torch.sparse_csr_tensor(crow, col, val, size=(N, N),
+                                   check_invariants=False)
+
+
+def _k3_call(m, dev, tile_bits=None):
+    """K3's plan for `m` with its tables on `dev`, held for many applies
+    (the wrapper alone builds both anew for every apply)."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    return fm.FusedCall(fm.make_fused_plan(m, tile_bits), device=dev)
+
+
+def _time_csr(L, dev):
+    """(CSR ms, K3 ms, nnz) of one H @ psi for the chain-field model at L,
+    real float32, with the two results compared."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    m = _flat_model(L, "chain-field")
+    x = _flat_state(m, dev, False, seed=L)
+    H = csr_hamiltonian(m, dev)
+    call = _k3_call(m, dev)
+    y = H @ x
+    want = fm.fused_matvec_apply(x, m, call)
+    err = float((y - want).abs().max()) / float(want.abs().max())
+    if not err <= 1e-6:
+        raise RuntimeError(f"L={L}: CSR product off K3 by {err:.3e}")
+    c_ms = _event_ms(lambda: H @ x, reps=10)
+    k_ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+    nnz = H.values().shape[0]
+    del H
+    torch.cuda.empty_cache()
+    return c_ms, k_ms, nnz
+
+
+def _k3_check(m, dev, cplx, seed, what):
+    """One K3 comparison: (max abs err, max rel err) against the plain
+    version on the same CUDA tensor, exact zeros outside the sector,
+    bit-identical repeats."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    x = _flat_state(m, dev, cplx, seed)
+    call = _k3_call(m, dev)
+    got = fm.fused_matvec_apply(x, m, call)
+    torch.cuda.synchronize()
+    want = fm.fused_matvec_apply_reference(x, m)
+    d = float((got - want).abs().max())
+    rel = d / max(float(want.abs().max()), 1e-30)
+    if not rel <= 1e-6:
+        raise RuntimeError(f"{what}: K3 vs plain rel err {rel:.3e} > 1e-6")
+    if torch.view_as_real(got)[~m.valid_mask(dev)].any() if cplx else (
+            got[~m.valid_mask(dev)].any()):
+        raise RuntimeError(f"{what}: weight outside the sector")
+    if not torch.equal(got, fm.fused_matvec_apply(x, m, call)):
+        raise RuntimeError(f"{what}: two applies of one input differ")
+    # the wrapper alone (plan and tables built for the one apply) agrees
+    if not torch.equal(got, fm.fused_matvec_apply(x, m)):
+        raise RuntimeError(f"{what}: the wrapper without a held call differs")
+    return d, rel, x
+
+
+def phase_k3(L, dev):
+    """K3 vs fused_matvec_apply_reference on the same CUDA tensors. Returns
+    the kernel record's numbers at L: real and complex times, bounds, the
+    copy time and the CSR yardstick."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    for kind in ("chain-field", "longrange"):
+        m = _flat_model(16, kind)
+        errs = [_k3_check(m, dev, c, 16, f"L=16 {kind}")[1]
+                for c in (False, True)]
+        plan = fm.make_fused_plan(m)
+        print(f"k3 L=16 {kind}: bonds local/straddle/tile "
+              f"{plan.n_local}/{plan.n_strad}/{plan.n_tile} | max|d|/max|y| "
+              f"real {errs[0]:.3e} complex {errs[1]:.3e} (<= 1e-6), exact 0 "
+              f"outside the sector, repeats bit-identical")
+    m = _flat_model(L, "chain-field")
+    call = _k3_call(m, dev)
+    plan = call.plan
+    N = m.n_states
+    out = {"passes": fm.fused_pass_count(plan)}
+    for cplx in (False, True):
+        d, rel, x = _k3_check(m, dev, cplx, L, f"L={L}")
+        # the plain version is timed with its N-sized diagonal held, as a
+        # blocked FlatHamiltonian holds it
+        dg = m.diag(dev, torch.float32)
+        k_ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+        p_ms = _event_ms(
+            lambda: fm.fused_matvec_apply_reference(x, m, dg), reps=3, warm=1)
+        del dg
+        k_ms2 = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+        y = torch.empty_like(x)
+        c_ms = _event_ms(lambda: y.copy_(x), reps=10)
+        comps = 2 if cplx else 1
+        # every bond is active on half of the states: 2 flops per component
+        bound = _bound(2 * N * 4 * comps,
+                       2 * comps * N * (1 + m.n_bonds / 2))
+        copy_bw = 2 * N * 4 * comps / (c_ms * 1e-3)
+        tag = "complex" if cplx else "real"
+        out[tag] = dict(abs_err=d, rel_err=rel, ms=min(k_ms, k_ms2),
+                        plain_ms=p_ms, copy_ms=c_ms, bound=bound)
+        print(f"k3 L={L} {tag}: tile 2^{plan.tile_bits}, bonds "
+              f"local/straddle/tile {plan.n_local}/{plan.n_strad}/"
+              f"{plan.n_tile}, {out['passes']:.1f} designed passes | "
+              f"max|d|/max|y| {rel:.3e} (<= 1e-6), max|d| {d:.3e}, exact 0 "
+              f"outside the sector, repeats bit-identical | median of 10, "
+              f"K3/plain/K3: K3 {k_ms:.3f} ms, plain {p_ms:.3f} ms, K3 "
+              f"{k_ms2:.3f} ms | N-sized copy {c_ms:.3f} ms "
+              f"({copy_bw / 1e12:.2f} TB/s) | bound {bound[0]:.3f} ms by "
+              f"{bound[1]} (data sheet), {2 * N * 4 * comps / copy_bw * 1e3:.3f}"
+              f" ms at the copy's rate")
+        del x, y
+    torch.cuda.empty_cache()
+    c22, k22, nnz = _time_csr(22, dev)
+    print(f"k3 L=22: torch sparse CSR H @ psi ({nnz} non-zeros) "
+          f"{c22:.3f} ms against K3 {k22:.3f} ms")
+    # the record's library time is one on the record's own inputs, or
+    # none: at L=28 the matrix has 3.9e9 non-zeros, more than the int32
+    # indices of csr_hamiltonian address, and 47 GB of them in int64
+    out["library_ms"] = None
+    if L <= 26:
+        out["library_ms"], kL, nnz = _time_csr(L, dev)
+        print(f"k3 L={L}: torch sparse CSR H @ psi ({nnz} non-zeros) "
+              f"{out['library_ms']:.3f} ms against K3 {kL:.3f} ms")
+    else:
+        print(f"k3 L={L}: no library time (the CSR matrix is not built "
+              f"above L=26: {N * (1 + m.n_bonds / 2):.2e} non-zeros)")
+    return out
+
+
+def phase_k3_tiles(L, dev):
+    """(--k3-tiles) K3's time at L for every tile size 2^8..2^13, real and
+    complex, each checked against the default tile's result."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    m = _flat_model(L, "chain-field")
+    for cplx in (False, True):
+        x = _flat_state(m, dev, cplx, seed=L)
+        want = fm.fused_matvec_apply(x, m)
+        rows = []
+        for k in range(8, 14):
+            call = _k3_call(m, dev, k)
+            plan = call.plan
+            got = fm.fused_matvec_apply(x, m, call)
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            if not rel <= 1e-6:
+                raise RuntimeError(f"tile 2^{k}: off the default tile's "
+                                   f"result by {rel:.3e}")
+            ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+            rows.append(f"2^{k}: {ms:.3f} ms "
+                        f"({fm.fused_pass_count(plan):.1f} passes)")
+        print(f"k3-tiles L={L} {'complex' if cplx else 'real'}: "
+              + " | ".join(rows))
+
+
+def phase_profile_flat(L, dev):
+    """(--profile) Kernel-time tables of three flat Lanczos steps (real
+    float32 state, compensated dots) and of a four-term Chebyshev step
+    (complex64 state), both through K3."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.solvers.chebyshev import chebyshev_time_evolve
+    from spindynamics_tpu_torch.solvers.lanczos import lanczos_iteration
+    from torch.profiler import ProfilerActivity, profile
+
+    m = _flat_model(L)
+    mv = pt.matvec_fn(m)
+    x = _flat_state(m, dev, False, seed=1)
+    z = pt.domain_wall_state(m, dtype=torch.complex64, device=dev)
+    runs = (("three Lanczos steps, float32",
+             lambda: lanczos_iteration(mv, x, 3)),
+            ("one Chebyshev step of 4 terms, complex64",
+             lambda: chebyshev_time_evolve(z, mv, 0.1, (-20.0, 20.0),
+                                           cheb_n=4)))
+    for what, fn in runs:
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, dt = _sync_time(fn)
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=12)
+        print(f"profile flat L={L} ({what}; {dt * 1e3:.1f} ms on the host "
+              f"clock):\n" + table)
+
+
+def _exact_flat(m):
+    """(evals, evecs, sector indices) of the model's sector block, from
+    build_dense_H in float64 on the host."""
+    import spindynamics_tpu_torch as pt
+
+    idx = np.nonzero(m.valid_mask().numpy())[0]
+    ev, U = np.linalg.eigh(pt.build_dense_H(m)[np.ix_(idx, idx)])
+    return ev, U, idx
+
+
+def phase_flat_oracle(dev):
+    """L=12 on the card through K3 against the float64 dense oracle: the
+    ground-state energy and a 10-step domain-wall trajectory."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    L = 12
+    m = _flat_model(L)
+    ev, U, idx = _exact_flat(m)
+    mv = pt.matvec_fn(m)
+    n0 = fm.kernel_launch_count()
+    E0, psi, info = pt.lanczos_groundstate_restarted(
+        mv, N=m.n_states, lanc_m=40, cycles=6, target_residual=1e-4,
+        mask=m.valid_mask(dev),
+        generator=torch.Generator(device=dev).manual_seed(0))
+    n_gs = fm.kernel_launch_count() - n0
+    _, obs = pt.evolve_trajectory(
+        m, pt.domain_wall_state(m, device=dev), dt=0.1, n_steps=10,
+        cheb_n=40, generator=torch.Generator(device=dev).manual_seed(7))
+    n_ev = fm.kernel_launch_count() - n0 - n_gs
+    c = U[np.searchsorted(idx, pt.domain_wall_bitstring(m))]
+    sz = ((idx[:, None] >> np.arange(L)) & 1) - 0.5
+    exact = np.asarray([np.abs(U @ (np.exp(-0.1j * k * ev) * c)) ** 2 @ sz
+                        for k in range(1, 11)])
+    dE, dS = abs(E0 - ev[0]), float(np.abs(obs - exact).max())
+    print(f"flat-oracle L=12: E0 {E0:.8f} (dense {ev[0]:.8f}, |d| {dE:.2e} "
+          f"<= 1e-5) residual {info['residual']:.2e} | max |d<Sz_i>| over "
+          f"10 steps {dS:.2e} (<= 1e-4) | K3 launches {n_gs} + {n_ev}")
+    if not (mv.backend == "fused" and n_gs > 0 and n_ev > 0):
+        raise RuntimeError("the L=12 flat path did not run K3")
+    if not dE <= 1e-5:
+        raise RuntimeError(f"L=12 flat E0 {E0} off the oracle by {dE}")
+    if not dS <= 1e-4:
+        raise RuntimeError(f"L=12 flat trajectory off exact by {dS}")
+
+
+def phase_flat_main(L, dev):
+    """The flat path at L: ground state, Lanczos and KPM S(q, omega),
+    domain-wall trajectory, all through K3; then the same model through the
+    kron layout (K1, K2). Returns K3's launch count."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    m = _flat_model(L)
+    mask = m.valid_mask(dev)
+    qs = [2 * np.pi * k / L for k in (4, 7, L // 2)]
+    omega = np.linspace(0.0, 4.0, 200)
+    lanc_m, sqw_m, kpm_m, cheb_n, n_steps = 40, 60, 100, 40, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_kernel_launch_count()
+    mv = pt.matvec_fn(m)
+    (E0, psi, info), t_gs = _sync_time(
+        lambda: pt.lanczos_groundstate_restarted(
+            mv, N=m.n_states, lanc_m=lanc_m, cycles=6, target_residual=1e-3,
+            mask=mask, generator=torch.Generator(device=dev).manual_seed(0)))
+    n_gs = fm.kernel_launch_count()
+    want_gs = info["cycles"] * (2 * lanc_m + 1) + info.get("polished", 0) * (
+        lanc_m + 1)
+    outside = bool(psi[~mask].any())
+    S, t_sqw = _sync_time(lambda: pt.lanczos_sqw(
+        psi, m, qs, omega, lanc_m=sqw_m, eta=0.1, matvec=mv))
+    n_sqw = fm.kernel_launch_count() - n_gs
+    K, t_kpm = _sync_time(lambda: pt.kpm_sqw(
+        psi, m, qs, omega, kpm_m=kpm_m, E0=E0, matvec=mv,
+        generator=torch.Generator(device=dev).manual_seed(7)))
+    K = K.cpu().numpy()
+    n_kpm = fm.kernel_launch_count() - n_gs - n_sqw
+    del psi
+    steps = []
+
+    def observe(p, mdl):
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter())
+        return pt.magnetization_per_site(p, mdl)
+
+    t0 = time.perf_counter()
+    (psi_t, obs), t_ev = _sync_time(lambda: pt.evolve_trajectory(
+        m, pt.domain_wall_state(m, device=dev), dt=0.1, n_steps=n_steps,
+        cheb_n=cheb_n, observe=observe,
+        generator=torch.Generator(device=dev).manual_seed(7)))
+    n_ev = fm.kernel_launch_count() - n_gs - n_sqw - n_kpm
+    launches = fm.kernel_launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = np.diff(steps)
+    norm = float(torch.linalg.vector_norm(psi_t))
+    out_ev = bool(torch.view_as_real(psi_t)[~mask].any())
+    del psi_t
+    tot = obs.sum(axis=1)
+    want = {"sqw": 1 + len(qs) * sqw_m,
+            "kpm": 80 + len(qs) * (1 + (kpm_m + 1) // 2),
+            "evolve": 80 + n_steps * (cheb_n - 1)}
+    np.set_printoptions(precision=4, suppress=True, linewidth=250)
+    print(f"flat-main L={L} N=2^{L} ({m.n_states * 4 / 2**20:.0f} MiB real, "
+          f"{m.n_states * 8 / 2**20:.0f} MiB complex per state): E0 "
+          f"{E0:.6f} E0/L {E0 / L:.6f} residual {info['residual']:.3e} "
+          f"cycles {info['cycles']} polished {info.get('polished', 0)} | "
+          f"ground state {t_gs:.2f} s ({t_gs / n_gs * 1e3:.2f} ms per "
+          f"apply), lanczos_sqw (3 q x {sqw_m}) {t_sqw:.2f} s "
+          f"({t_sqw / n_sqw * 1e3:.2f} ms per apply), kpm_sqw (3 q x "
+          f"{kpm_m} moments + 80 bounds steps) {t_kpm:.2f} s "
+          f"({t_kpm / n_kpm * 1e3:.2f} ms per apply), trajectory "
+          f"{t_ev:.2f} s (bounds {steps[0] - t0 - step_s.mean():.2f} s, "
+          f"seconds per step median {float(np.median(step_s)):.3f}) | peak "
+          f"{peak / 2**30:.2f} GiB | K3 launches {launches} = {n_gs} + "
+          f"{n_sqw} + {n_kpm} + {n_ev} (predicted {want_gs} + "
+          f"{want['sqw']} + {want['kpm']} + {want['evolve']}) | norm "
+          f"{norm:.7f} | max |sum_i <Sz_i>| {float(np.abs(tot).max()):.2e}")
+    print(f"flat-main L={L}: lanczos_sqw max {S.max():.4f} peak omega per q "
+          f"{[float(omega[i]) for i in S.argmax(axis=1)]} | kpm_sqw max "
+          f"{K.max():.4f} peak omega per q "
+          f"{[float(omega[i]) for i in K.argmax(axis=1)]}")
+    print(f"flat-main L={L}: <Sz_i> after step 5 {obs[-1]}")
+    if mv.backend != "fused":
+        raise RuntimeError(f"the flat path ran backend {mv.backend!r}")
+    if (n_gs, n_sqw, n_kpm, n_ev) != (want_gs, want["sqw"], want["kpm"],
+                                      want["evolve"]):
+        raise RuntimeError("K3's launch count is not what the solvers' "
+                           "apply counts predict")
+    if not info["residual"] <= 1e-3:
+        raise RuntimeError(f"flat residual {info['residual']} > 1e-3")
+    if outside or out_ev:
+        raise RuntimeError("weight outside the sector")
+    if not (np.all(np.isfinite(S)) and S.max() > 0 and np.all(np.isfinite(K))
+            and K.max() > 0 and K.min() >= -1e-6 * K.max()):
+        raise RuntimeError("flat S(q, omega) not finite and non-negative")
+    if not abs(norm - 1.0) <= 1e-4:
+        raise RuntimeError(f"norm {norm} off 1 by more than 1e-4")
+    if not (np.all(np.isfinite(obs)) and np.all(np.abs(tot) <= 1e-5)):
+        raise RuntimeError(f"sum_i <Sz_i> not conserved: {tot}")
+
+    # the same model on the kron layout: two layouts, three kernels
+    mk = _evolve_model(L)
+    (Ek, _, ik, _), t_k = _sync_time(lambda: pt.groundstate_kron(
+        mk, lanc_m=lanc_m, cycles=6, target_residual=1e-3))
+    (_, obs_k, _), t_ek = _sync_time(lambda: pt.evolve_trajectory_kron(
+        mk, pt.domain_wall_bitstring(mk), dt=0.1, n_steps=n_steps,
+        cheb_n=cheb_n))
+    dE, dS = abs(E0 - Ek), float(np.abs(obs - obs_k).max())
+    print(f"flat-main L={L} against the kron layout: E0 flat {E0:.6f} kron "
+          f"{Ek:.6f} |d| {dE:.2e} (<= 1e-4) | max |d<Sz_i>| over {n_steps} "
+          f"steps {dS:.2e} (<= 1e-5) | kron ground state {t_k:.2f} s, "
+          f"trajectory {t_ek:.2f} s")
+    if not dE <= 1e-4:
+        raise RuntimeError(f"flat and kron E0 differ by {dE}")
+    if not dS <= 1e-5:
+        raise RuntimeError(f"flat and kron <Sz_i> differ by {dS}")
+    return launches
 
 
 def phase_oracle(dev):
@@ -499,10 +972,14 @@ def phase_profile_term(L, dev, info):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--L", type=int, default=28)
+    ap.add_argument("--L-flat", type=int, default=26, dest="L_flat")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
     args = ap.parse_args(argv)
     if args.L % 2 or not 16 <= args.L <= 32:
         raise SystemExit("--L must be even, 16..32")
+    if args.L_flat % 2 or not 16 <= args.L_flat <= 28:
+        raise SystemExit("--L-flat must be even, 16..28")
 
     phase_device()
     dev = torch.device("cuda")
@@ -510,9 +987,9 @@ def main(argv=None):
 
     phase_build()
     phase_k1(16, dev)
-    abs_err, rel_err, k_ms, p_ms = phase_k1(args.L, dev)
+    abs_err, rel_err, k_ms, p_ms, bound1 = phase_k1(args.L, dev)
     phase_k2(16, dev)
-    abs_err2, rel_err2, k2_ms, p2_ms = phase_k2(args.L, dev)
+    abs_err2, rel_err2, k2_ms, p2_ms, bound2 = phase_k2(args.L, dev)
     phase_oracle(dev)
     launches, psi, E0, kinfo = phase_main(args.L, dev)
     if args.profile:
@@ -523,6 +1000,13 @@ def main(argv=None):
     if args.profile:
         phase_profile_term(args.L, dev, einfo)
     phase_typicality(dev)
+    k3 = phase_k3(args.L_flat, dev)
+    if args.k3_tiles:
+        phase_k3_tiles(args.L_flat, dev)
+    phase_flat_oracle(dev)
+    launches3 = phase_flat_main(args.L_flat, dev)
+    if args.profile:
+        phase_profile_flat(args.L_flat, dev)
     print(json.dumps({"kernels": [{
         "name": "K1 fused kron group apply",
         "route": "cuda",
@@ -532,6 +1016,10 @@ def main(argv=None):
         "max_abs_err": abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": bound1[0],
+        "bound_by": bound1[1],
+        "library_ms": None,
+        "L": args.L,
     }, {
         "name": "K2 fused Chebyshev term",
         "route": "cuda",
@@ -541,6 +1029,28 @@ def main(argv=None):
         "max_abs_err": abs_err2,
         "ms": k2_ms,
         "plain_ms": p2_ms,
+        "bound_ms": bound2[0],
+        "bound_by": bound2[1],
+        "library_ms": None,
+        "L": args.L,
+    }, {
+        "name": "K3 fused matvec (float32 state)",
+        "route": "cuda",
+        "source": "spindynamics_tpu_torch/csrc/fused_matvec.cu",
+        "replaces": "spindynamics_tpu/ops/pallas_matvec.py:242",
+        "launches": launches3,
+        "max_abs_err": max(k3["real"]["abs_err"], k3["complex"]["abs_err"]),
+        "ms": k3["real"]["ms"],
+        "plain_ms": k3["real"]["plain_ms"],
+        "bound_ms": k3["real"]["bound"][0],
+        "bound_by": k3["real"]["bound"][1],
+        "library_ms": k3["library_ms"],
+        "L": args.L_flat,
+        "copy_ms": k3["real"]["copy_ms"],
+        "complex_ms": k3["complex"]["ms"],
+        "complex_plain_ms": k3["complex"]["plain_ms"],
+        "complex_bound_ms": k3["complex"]["bound"][0],
+        "complex_copy_ms": k3["complex"]["copy_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

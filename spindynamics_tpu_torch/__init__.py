@@ -6,8 +6,13 @@ KPM moments and K1, the fused kron group apply, as a hand-written CUDA
 kernel for Hopper: ops/kron_group.py, csrc/kron_group.cu), and kron time
 evolution (Chebyshev and Krylov real and imaginary time, the domain-wall
 trajectory, quantum typicality: solvers/kron_evolve.py) with K2, the fused
-Chebyshev term, in CUDA (ops/cheb_term.py, csrc/cheb_term.cu). It imports
-torch, numpy and scipy, never jax.
+Chebyshev term, in CUDA (ops/cheb_term.py, csrc/cheb_term.cu); and the
+flat-state path on the full and embedded layouts (ops/apply.py with the
+blocked apply, the flat Lanczos, Chebyshev, Krylov, Lanczos-S(q, omega) and
+KPM solvers, observables.py, the flat runners) with K3, the fused matvec,
+in CUDA (ops/fused_matvec.py, csrc/fused_matvec.cu). Entry points run on the
+card unless the caller passes device="cpu". It imports torch, numpy and
+scipy, never jax.
 """
 
 import torch
@@ -20,17 +25,41 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .model import SpinModel, build_model  # noqa: E402
+from .model import (  # noqa: E402
+    SpinModel, build_model, long_range_hopping, nn_hopping)
 from .models.initial_states import (  # noqa: E402
-    domain_wall_bitstring, neel_bitstring, polarized_bitstring)
+    basis_state_vector, domain_wall_bitstring, domain_wall_state,
+    neel_bitstring, neel_state, polarized_bitstring, polarized_state,
+    polarized_state_with_flips, state_index)
 from .models.xxz import heisenberg_chain, xxz_chain  # noqa: E402
+from .observables import (  # noqa: E402
+    connected_correlations, magnetization_per_site, structure_factor_Sq,
+    structure_factor_Sq_dict, szsz_matrix)
 from .observables_kron import magnetization_per_site_kron  # noqa: E402
+from .ops.apply import (  # noqa: E402
+    FlatHamiltonian, apply_H, apply_rescaled_H, build_dense_H, matvec_fn)
+from .ops.fused_matvec import (  # noqa: E402
+    kernel_launch_count as fused_matvec_launch_count)
 from .ops.kron_group import KronHamiltonian, kernel_launch_count  # noqa: E402
+from .ops.spin_ops import (  # noqa: E402
+    apply_spin_operator, make_spin_operator, sz_q_vector, sz_q_weights)
 from .solvers.blockvec import BlockVec  # noqa: E402
+from .solvers.chebyshev import chebyshev_time_evolve  # noqa: E402
+from .solvers.kpm import kpm_sqw, kpm_sw  # noqa: E402
 from .solvers.kron_evolve import (  # noqa: E402
     KronPlanes, chebyshev_time_evolve_kron, evolve_trajectory_kron,
     kron_energy_bounds, typicality_correlation_kron)
-from .solvers.runners import groundstate_kron, kpm_sqw_kron  # noqa: E402
+from .solvers.krylov import (  # noqa: E402
+    krylov_expm_multiply, krylov_imaginary_time_evolve, krylov_time_evolve)
+from .solvers.lanczos import (  # noqa: E402
+    estimate_energy_bounds, lanczos_extremal, lanczos_groundstate,
+    lanczos_groundstate_restarted, lanczos_groundstate_twopass,
+    lanczos_tridiag)
+from .solvers.lanczos_sqw import lanczos_sqw  # noqa: E402
+from .solvers.runners import (  # noqa: E402
+    evolve_trajectory, groundstate_kron, kpm_sqw_kron, run_chebyshev,
+    run_krylov)
+from .utils.device import resolve_device  # noqa: E402
 
 __all__ = [
     "SpinModel",
@@ -51,4 +80,45 @@ __all__ = [
     "domain_wall_bitstring",
     "neel_bitstring",
     "polarized_bitstring",
+    # the flat-state path (full and embedded layouts)
+    "nn_hopping",
+    "long_range_hopping",
+    "FlatHamiltonian",
+    "matvec_fn",
+    "apply_H",
+    "apply_rescaled_H",
+    "build_dense_H",
+    "fused_matvec_launch_count",
+    "apply_spin_operator",
+    "make_spin_operator",
+    "sz_q_weights",
+    "sz_q_vector",
+    "state_index",
+    "basis_state_vector",
+    "domain_wall_state",
+    "neel_state",
+    "polarized_state",
+    "polarized_state_with_flips",
+    "magnetization_per_site",
+    "szsz_matrix",
+    "connected_correlations",
+    "structure_factor_Sq",
+    "structure_factor_Sq_dict",
+    "lanczos_groundstate",
+    "lanczos_groundstate_twopass",
+    "lanczos_groundstate_restarted",
+    "lanczos_extremal",
+    "lanczos_tridiag",
+    "estimate_energy_bounds",
+    "chebyshev_time_evolve",
+    "krylov_time_evolve",
+    "krylov_expm_multiply",
+    "krylov_imaginary_time_evolve",
+    "lanczos_sqw",
+    "kpm_sw",
+    "kpm_sqw",
+    "run_chebyshev",
+    "run_krylov",
+    "evolve_trajectory",
+    "resolve_device",
 ]

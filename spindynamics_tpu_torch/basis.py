@@ -1,8 +1,10 @@
-"""Bit-encoded U(1)-sector bases on the host (port of spindynamics_tpu/basis.py).
+"""Bit-encoded spin-1/2 bases (port of spindynamics_tpu/basis.py).
 
-Only the host functions the sector_kron layout needs: states are uint32 values
-sorted ascending (colexicographic combinadic order), so the rank of a state is
-the closed form sum_t C(p_t, t) over its ascending set-bit positions.
+Host numpy constructors: sector states are uint32 values sorted ascending
+(colexicographic combinadic order), so the rank of a state is the closed
+form sum_t C(p_t, t) over its ascending set-bit positions; in the full basis
+a state's value is its index. The bit helpers act on numpy arrays or torch
+tensors of states. The vectorized rank/unrank wait for the compact layout.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["binomial_table", "sector_dimension", "build_sector_basis",
-           "rank_state"]
+__all__ = ["binomial_table", "sector_dimension", "build_full_basis",
+           "build_sector_basis", "rank_state", "bit_at", "sz_value",
+           "flip_bits"]
 
 MAX_L = 32  # uint32 states
 
@@ -32,6 +35,16 @@ def binomial_table(L: int, kmax: int | None = None) -> np.ndarray:
 
 def sector_dimension(L: int, nup: int) -> int:
     return math.comb(L, nup)
+
+
+def build_full_basis(L: int) -> np.ndarray:
+    """All 2^L states; state value == basis index."""
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"L must be in [1, {MAX_L}], got {L}")
+    if L >= 28:
+        raise ValueError(
+            f"full basis at L={L} has 2^{L} states; use a sector basis")
+    return np.arange(1 << L, dtype=np.uint32)
 
 
 @lru_cache(maxsize=None)
@@ -66,3 +79,23 @@ def rank_state(state: int, L: int, nup: int) -> int:
             cnt += 1
             rank += math.comb(p, cnt)
     return rank
+
+
+def bit_at(states, i: int):
+    """Value (0/1) of bit i of each state (numpy array or torch tensor)."""
+    return (states >> i) & 1
+
+
+def sz_value(bits, dtype=None):
+    """S^z eigenvalue +-0.5 from a 0/1 bit. dtype defaults to float32 (a
+    torch dtype for tensors, a numpy dtype for arrays)."""
+    import torch
+
+    if isinstance(bits, torch.Tensor):
+        return bits.to(torch.float32 if dtype is None else dtype) - 0.5
+    return np.asarray(bits).astype(np.float32 if dtype is None else dtype) - 0.5
+
+
+def flip_bits(states, i: int, j: int):
+    """XOR-flip bits i and j of each state."""
+    return states ^ ((1 << i) | (1 << j))

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..solvers.blockvec import BlockVec
+from ..utils.device import resolve_device
 from .cuda_build import CSRC, build_shared_library
 from .sector_kron import (
     SectorKronLayout,
@@ -562,13 +563,15 @@ class KronHamiltonian(nn.Module):
     derived from the layout), so `.to(device)` moves them. Routing is fixed
     at construction: `fused` (K1 for the top_k largest groups, else the
     plain blocks apply), `top_k` and `fuse_crossh` are fields, not
-    environment reads. forward(bv, s=None, bv0=None) returns H bv (+ s bv0:
-    the Lanczos axpy, folded into the kernel seed when fused)."""
+    environment reads. `device` defaults to the card (pass device="cpu" for
+    a CPU module). forward(bv, s=None, bv0=None) returns H bv (+ s bv0: the
+    Lanczos axpy, folded into the kernel seed when fused)."""
 
     def __init__(self, layout: SectorKronLayout, dtype=torch.float32,
-                 device="cpu", fused: bool = True, top_k: int | None = None,
+                 device=None, fused: bool = True, top_k: int | None = None,
                  fuse_crossh: bool = True):
         super().__init__()
+        device = resolve_device(device)
         self.layout = layout
         self.fused = fused
         self.top_k = default_fused_topk(layout) if top_k is None else top_k

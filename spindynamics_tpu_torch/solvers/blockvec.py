@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["BlockVec", "bv_zeros_like", "bv_random", "bv_basis_state",
            "bv_matvec_fn"]
 
@@ -76,11 +78,14 @@ def bv_zeros_like(x):
 
 
 def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
-              device="cpu") -> BlockVec:
+              device=None) -> BlockVec:
     """Random normal BlockVec over a SectorKronLayout, zero in tile-pad slots
     (the pad slots are an invariant null subspace of the apply, so zeroing
     them once keeps them exactly zero). The numbers are drawn on the
-    generator's device, then moved to `device`."""
+    generator's device, then moved to `device` (default: the card, as for
+    every state constructor, since a state decides where a solver runs; pass
+    device="cpu" for a CPU state)."""
+    device = resolve_device(device)
     leaves = []
     for (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in layout.groups:
         x = torch.randn((ch, cmp, clp), generator=generator, dtype=dtype,
@@ -93,8 +98,9 @@ def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
 
 
 def bv_basis_state(layout, bitstring: int, dtype=torch.float32,
-                   device="cpu") -> BlockVec:
-    """One-hot |bitstring> as a BlockVec."""
+                   device=None) -> BlockVec:
+    """One-hot |bitstring> as a BlockVec on `device` (default: the card;
+    pass device="cpu" for a CPU state)."""
     from .. import basis as basis_mod
     from ..ops.sector_kron import kron_part_perms
 
@@ -116,6 +122,7 @@ def bv_basis_state(layout, bitstring: int, dtype=torch.float32,
     if k_h + k_m + k_l != layout.nup:
         raise ValueError(f"state {bitstring:#x} has wrong magnetization for "
                          f"nup={layout.nup}")
+    device = resolve_device(device)
     leaves = []
     for (gkh, gkm, gkl, ch, cm, cl, cmp, clp) in layout.groups:
         leaf = torch.zeros((ch, cmp, clp), dtype=dtype, device=device)

@@ -1,6 +1,7 @@
-"""KPM machinery: Chebyshev moments, damping kernels and series
-reconstruction, and the Chebyshev-Bessel time-step coefficients (port of
-the KPM and coefficient parts of spindynamics_tpu/solvers/chebyshev.py).
+"""Chebyshev machinery: KPM moments, damping kernels, series
+reconstruction, and Chebyshev-Bessel time evolution of flat states (port of
+spindynamics_tpu/solvers/chebyshev.py). States are BlockVecs or flat
+tensors; complex flat states are native complex64/complex128 tensors.
 
 The two reference normalization conventions stay explicit in
 `kpm_reconstruct(..., doubling=..., density_2_over_a=...)`. The series is
@@ -15,11 +16,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .lanczos import _default_compensated, _inner_c
+from ..utils.dtypes import complex_dtype
+from .lanczos import _default_compensated, _inner_c, _re
 
 __all__ = [
     "rescaling_params",
     "chebyshev_moments",
+    "chebyshev_cross_moments",
+    "kpm_diagnostics",
+    "chebyshev_time_evolve",
     "jackson_kernel",
     "lorentz_kernel",
     "get_kernel",
@@ -53,14 +58,14 @@ def _moment_scan_doubled(matvec_rescaled: Callable, phi, M: int,
     """mu_0..mu_{M-1} via the product identities
     mu_{2n} = 2 <T_n|T_n> - mu_0, mu_{2n+1} = 2 <T_{n+1}|T_n> - mu_1."""
     half = (M + 1) // 2  # need T_0..T_half
-    mu0 = _inner_c(phi, phi, compensated)
+    mu0 = _re(_inner_c(phi, phi, compensated))
     v_prev, v_curr = phi, matvec_rescaled(phi)
-    mu1 = _inner_c(phi, v_curr, compensated)
+    mu1 = _re(_inner_c(phi, v_curr, compensated))
     mus = [mu0, mu1]
     for _ in range(max(half, 1)):  # n = 1..half: mu_2..mu_{2 half + 1}
         v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
-        mus.append(2.0 * _inner_c(v_curr, v_curr, compensated) - mu0)
-        mus.append(2.0 * _inner_c(v_next, v_curr, compensated) - mu1)
+        mus.append(2.0 * _re(_inner_c(v_curr, v_curr, compensated)) - mu0)
+        mus.append(2.0 * _re(_inner_c(v_next, v_curr, compensated)) - mu1)
         v_prev, v_curr = v_curr, v_next
     return torch.stack(mus)[:M]
 
@@ -68,15 +73,29 @@ def _moment_scan_doubled(matvec_rescaled: Callable, phi, M: int,
 def chebyshev_moments(matvec_rescaled, phi, M: int,
                       doubling_trick: bool = False,
                       compensated: bool | None = None) -> torch.Tensor:
-    """Diagonal KPM moments mu_n = <phi|T_n(H~)|phi>.
+    """Diagonal KPM moments mu_n = <phi|T_n(H~)|phi> (real parts).
 
     doubling_trick=True produces M moments from ~M/2 matvecs through the
     product identities (see _moment_scan_doubled)."""
     if compensated is None:
         compensated = _default_compensated(phi.dtype)
     if not doubling_trick:
-        return _moment_scan(matvec_rescaled, phi, M, phi, compensated)
+        return _re(_moment_scan(matvec_rescaled, phi, M, phi, compensated))
     return _moment_scan_doubled(matvec_rescaled, phi, M, compensated)
+
+
+def chebyshev_cross_moments(matvec_rescaled, chi, phi, M: int,
+                            normalize_phi: bool = True,
+                            compensated: bool | None = None) -> torch.Tensor:
+    """Cross moments mu_n = <chi|T_n(H~)|phi> ||phi|| with phi normalized
+    first (ref src/TimeEvolution/KPM.jl:119-163). Returns real parts."""
+    if compensated is None:
+        compensated = _default_compensated(phi.dtype)
+    norm_phi = torch.linalg.vector_norm(phi)
+    if normalize_phi:
+        phi = phi / norm_phi
+    mus = _moment_scan(matvec_rescaled, phi, M, chi, compensated)
+    return _re(mus) * norm_phi
 
 
 def jackson_kernel(M: int) -> np.ndarray:
@@ -140,6 +159,31 @@ def kpm_reconstruct(mu, omega, a: float, b: float, kernel: str = "jackson",
     return S
 
 
+def kpm_diagnostics(matvec_rescaled, phi, omega, a: float, b: float,
+                    M: int = 32) -> dict:
+    """Structured KPM health check: the x-range of omega against [-1, 1],
+    moment magnitudes, and the growth of the iterate norms (which signals
+    eigenvalues escaping the rescaled interval)."""
+    x = (np.asarray(omega, np.float64) - b) / a
+    mu = chebyshev_moments(matvec_rescaled, phi, M)
+    v_prev, v_curr = phi, matvec_rescaled(phi)
+    norms = []
+    for _ in range(max(M - 2, 1)):
+        v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
+        norms.append(torch.linalg.vector_norm(v_next))
+        v_prev, v_curr = v_curr, v_next
+    mu = mu.cpu().numpy()
+    return {
+        "x_min": float(x.min()),
+        "x_max": float(x.max()),
+        "x_in_range": bool(np.all(np.abs(x) <= 1.0)),
+        "moments": mu,
+        "max_abs_moment": float(np.abs(mu).max()),
+        "iterate_norms": torch.stack(norms).cpu().numpy(),
+        "moments_bounded": float(np.abs(mu).max()) < 1e3,
+    }
+
+
 def chebyshev_coefficients(dt: float, Emin: float, Emax: float, cheb_n: int):
     """c_k = (2 - delta_k0) (-i)^k J_k(a dt) e^{-i b dt} and (a, b) of the
     e^{-iH dt} expansion in T_k((H - b)/a), with the 0.9999 shrink of the
@@ -152,3 +196,41 @@ def chebyshev_coefficients(dt: float, Emin: float, Emax: float, cheb_n: int):
     k = np.arange(cheb_n)
     c = (2.0 - (k == 0)) * (-1j) ** k * jv(k, a * dt) * np.exp(-1j * b * dt)
     return np.asarray(c, np.complex128), float(a), float(b)
+
+
+
+def chebyshev_time_evolve(psi: torch.Tensor, matvec, dt: float, Ebounds,
+                          cheb_n: int = 100, coeffs=None) -> torch.Tensor:
+    """psi(t + dt) = e^{-i H dt} psi of a flat state by the Chebyshev-Bessel
+    expansion (ref src/TimeEvolution/Chebyshev.jl:62-133). `matvec` applies
+    the raw H; the rescaling happens inside from Ebounds. `coeffs` (from
+    chebyshev_coefficients) skips the host Bessel evaluation. The state is
+    a native complex tensor (complex64 for a float32 or complex64 input)."""
+    if coeffs is None:
+        c, a, b = chebyshev_coefficients(dt, Ebounds[0], Ebounds[1], cheb_n)
+    else:
+        c, a, b = coeffs
+    psi = psi.to(complex_dtype(psi.dtype))
+    inv_a = 1.0 / a
+
+    def matvec_rescaled(v):
+        return (matvec(v) - b * v) * inv_a
+
+    return _cheb_evolve_accum(matvec_rescaled, psi,
+                              [complex(x) for x in c], cheb_n)
+
+
+def _cheb_evolve_accum(matvec_rescaled, psi, coeffs, n: int):
+    """sum_k c_k T_k(H~) psi by the three-term recurrence, accumulated as
+    it goes (no [n, N] buffer). The accumulator is updated in place."""
+    phi_prev = psi
+    psi_t = coeffs[0] * phi_prev
+    if n < 2:
+        return psi_t
+    phi_curr = matvec_rescaled(phi_prev)
+    psi_t.add_(phi_curr, alpha=coeffs[1])
+    for c_k in coeffs[2:n]:
+        phi_next = 2.0 * matvec_rescaled(phi_curr) - phi_prev
+        psi_t.add_(phi_next, alpha=c_k)
+        phi_prev, phi_curr = phi_curr, phi_next
+    return psi_t

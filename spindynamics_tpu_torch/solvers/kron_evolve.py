@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.kron_group import KronHamiltonian
 from ..ops.sector_kron import SectorKronLayout, default_fused_topk
 from ..utils.compensated import vdot2
+from ..utils.device import resolve_device
 from .blockvec import BlockVec, bv_basis_state, bv_random, bv_zeros_like
 
 __all__ = [
@@ -99,10 +100,11 @@ class KronPlanes(nn.Module):
 
 
 def kron_planes_matvec_fn(layout: SectorKronLayout, fused: bool = True,
-                          dtype=torch.float32, device="cpu",
+                          dtype=torch.float32, device=None,
                           cheb_fused: bool | None = None,
                           cheb_top_k: int | None = None) -> KronPlanes:
-    """The planes module over a new KronHamiltonian of `layout`."""
+    """The planes module over a new KronHamiltonian of `layout`, on
+    `device` (default: the card; pass device="cpu" for a CPU run)."""
     H = KronHamiltonian(layout, dtype=dtype, device=device, fused=fused)
     return KronPlanes(H, cheb_fused=cheb_fused, cheb_top_k=cheb_top_k)
 
@@ -400,7 +402,7 @@ def kron_energy_bounds(layout: SectorKronLayout, planes_or_mv,
 
     mv = getattr(planes_or_mv, "mv", planes_or_mv)
     if v0 is None:
-        dev = getattr(mv, "device", torch.device("cpu"))
+        dev = resolve_device(getattr(mv, "device", None))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(7)
         v0 = bv_random(layout, generator, torch.float32, dev)
@@ -415,7 +417,6 @@ def _planes_for(layout, fused, dtype, device):
     """The planes module of an entry point. A fused run needs float32
     states (K1 and K2): in another dtype it raises on CUDA and runs the
     plain apply on the CPU, as runners.groundstate_kron does."""
-    device = torch.device(device)
     if fused and dtype != torch.float32:
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1 and K2, which take "
@@ -446,7 +447,7 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
 
     psi0: an int bitstring, a real BlockVec or an (re, im) pair. The state
     dtype defaults to float32 (as the JAX package resolves a float64 model);
-    `device` defaults to psi0's, else the CPU. Bounds come from a
+    `device` defaults to psi0's, else the card. Bounds come from a
     bounds_m-step Lanczos run (kron_energy_bounds, `generator` or seed 7)
     unless `Ebounds` is given. `observe(pair, layout)` defaults to
     magnetization_per_site_kron. Returns (pair, obs [n_steps, ...] numpy,
@@ -461,10 +462,8 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
     sdt = torch.float32 if state_dtype is None else state_dtype
     _check_state_dtype(sdt)
     lay = _layout_of(model, "evolve_trajectory_kron")
-    if device is None:
-        device = (psi0.device if isinstance(psi0, BlockVec)
-                  else psi0[0].device if isinstance(psi0, tuple) else "cpu")
-    device = torch.device(device)
+    device = resolve_device(
+        device, psi0 if isinstance(psi0, (BlockVec, tuple)) else None)
     planes = _planes_for(lay, fused, sdt, device)
 
     if isinstance(psi0, (int, np.integer)):
@@ -514,7 +513,8 @@ def typicality_correlation_kron(model, beta: float, site_a: int, site_b: int,
     Returns complex [T] numpy.
 
     r0: a given (re, im) pair (copied to `device`, float32), else two
-    random BlockVecs from `generator` (default: seed 0 on `device`). Bounds
+    random BlockVecs from `generator` (default: seed 0 on `device`).
+    `device` defaults to r0's, else the card. Bounds
     from kron_energy_bounds (`generator`, else seed 7) unless `Ebounds` is
     given. Ref capability: src/TimeEvolution/QuantumTypicality.jl:33-211."""
     from ..observables_kron import bv_apply_sz
@@ -522,9 +522,7 @@ def typicality_correlation_kron(model, beta: float, site_a: int, site_b: int,
 
     _no_mesh(mesh)
     lay = _layout_of(model, "typicality_correlation_kron")
-    if device is None:
-        device = r0[0].device if r0 is not None else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, r0)
     planes = _planes_for(lay, fused, torch.float32, device)
     if r0 is None:
         g = (generator if generator is not None

@@ -1,12 +1,21 @@
-"""Restarted two-pass Lanczos ground state on BlockVec states (port of the
-no-reorthogonalization parts of spindynamics_tpu/solvers/lanczos.py).
+"""Lanczos eigensolvers on BlockVec and flat states (port of
+spindynamics_tpu/solvers/lanczos.py).
 
+One recurrence core with options serves the extremal, ground-state,
+tridiagonal and spectral paths. A state is a BlockVec (the kron layout) or
+one flat tensor, real or complex (the full and embedded layouts); the
+stored basis and the reorthogonalization options exist for flat states.
 `lax.scan` becomes a Python loop; per-step scalars stay 0-d tensors on the
-state's device, so a step never waits for the device. The seeded (axpy)
+state's device, so a step never waits for the device (the selective
+reorthogonalization decides on the host and does wait). The seeded (axpy)
 branch and the second pass are kept exactly as in the JAX package: pass 2
 regenerates pass 1's Krylov basis bit for bit, which holds because every
-apply and every dot is deterministic (K1 writes each output once, with no
-atomics).
+apply and every dot is deterministic (K1 and K3 write each output once,
+with no atomics).
+
+Random starts are real float32 by default on every device (H is real
+symmetric, so a real start spans the same Krylov information); the JAX
+package's backend-dependent default dtype is not ported.
 """
 
 from __future__ import annotations
@@ -16,11 +25,17 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.dtypes import real_dtype
 from .blockvec import BlockVec, bv_zeros_like
 
 __all__ = [
     "LanczosFactorization",
     "lanczos_iteration",
+    "lanczos_tridiag",
+    "lanczos_extremal",
+    "estimate_energy_bounds",
+    "lanczos_groundstate",
+    "lanczos_groundstate_twopass",
     "tridiag_eigh",
     "restart_cycle",
     "lanczos_groundstate_restarted",
@@ -32,10 +47,11 @@ class LanczosFactorization(NamedTuple):
     betas: torch.Tensor    # [m] (zeros past breakdown), on the CPU
     m_eff: int             # number of valid Lanczos vectors
     v0_norm: torch.Tensor  # norm of the starting vector
+    basis: torch.Tensor | None = None  # [m, N] Krylov basis (flat states)
 
 
 def _inner_c(x, y, compensated: bool):
-    """<x|y>, leaf by leaf for BlockVec states."""
+    """Sesquilinear <x|y>, leaf by leaf for BlockVec states."""
     if isinstance(x, BlockVec):
         return sum(_inner_c(a, b, compensated)
                    for a, b in zip(x.leaves, y.leaves))
@@ -43,7 +59,15 @@ def _inner_c(x, y, compensated: bool):
         from ..utils.compensated import vdot2
 
         return vdot2(x, y)
+    if x.is_complex() or y.is_complex():
+        cd = torch.promote_types(x.dtype, y.dtype)
+        return torch.vdot(x.reshape(-1).to(cd), y.reshape(-1).to(cd))
     return torch.dot(x.reshape(-1), y.reshape(-1))
+
+
+def _re(z):
+    """Real part of a 0-d inner product (alpha = Re<v|Hv>)."""
+    return z.real if z.is_complex() else z
 
 
 def _norm_c(x, compensated: bool):
@@ -58,41 +82,110 @@ def _norm_c(x, compensated: bool):
 
 
 def _default_compensated(dtype) -> bool:
-    """Compensated dots in f32; f64 already has the headroom."""
-    return torch.finfo(dtype).bits <= 32
+    """Compensated dots in f32 (and complex64); f64 already has the
+    headroom."""
+    return torch.finfo(real_dtype(dtype)).bits <= 32
 
 
-def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool):
-    """m Lanczos steps from normalized v1 (no reorthogonalization). Returns
-    (alphas[m], betas[m], active[m]) as device tensors; betas[j] couples step
-    j to j+1.
+def _project_out(V, w, j: int):
+    """w minus its components along the stored V[0..j] (two products)."""
+    Vj = V[: j + 1]
+    return w - Vj.T @ (Vj.conj() @ w)
 
-    With `matvec.supports_axpy` the recurrence's -beta_{j-1} v_{j-1} is
-    folded into the apply's kernel seed, and alpha = <v_j|w> then carries
-    -beta <v_j|v_{j-1}> (identical up to the f32 orthogonality floor, the
-    standard Lanczos form). Both passes take the same branch."""
+
+def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
+                  reorth=False, store_basis: bool = False):
+    """m Lanczos steps from normalized v1. Returns (alphas[m], betas[m],
+    active[m], V or None) as device tensors; betas[j] couples step j to
+    j+1.
+
+    reorth: False | True/"full" (against the whole stored basis, every
+    step) | "selective" (Simon's omega recurrence tracks the worst-case
+    orthogonality estimate on the host; a full sweep runs only when it
+    passes sqrt(eps)). reorth and store_basis keep an [m, N] basis and take
+    flat states.
+
+    With `matvec.supports_axpy` (and no stored basis) the recurrence's
+    -beta_{j-1} v_{j-1} is folded into the apply's kernel seed, and alpha =
+    <v_j|w> then carries -beta <v_j|v_{j-1}> (identical up to the f32
+    orthogonality floor, the standard Lanczos form). Both passes take the
+    same branch."""
     dtype = v1.dtype
+    rdtype = real_dtype(dtype)
     dev = v1.device
-    tol = torch.tensor(tol, dtype=dtype, device=dev)
-    tiny = torch.finfo(dtype).tiny
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    axpy_ok = getattr(matvec, "supports_axpy", False)
+    tol = torch.tensor(tol, dtype=rdtype, device=dev)
+    tiny = torch.finfo(rdtype).tiny
+    zero = torch.zeros((), dtype=rdtype, device=dev)
+    selective = reorth == "selective"
+    full_reorth = bool(reorth) and not selective
+    use_buffer = bool(reorth) or store_basis
+    if use_buffer and isinstance(v1, BlockVec):
+        raise NotImplementedError(
+            "a stored basis / reorthogonalization on BlockVec states is not "
+            "ported yet (ROADMAP Queue 1, item 10)")
+    axpy_ok = getattr(matvec, "supports_axpy", False) and not use_buffer
+
+    V = None
+    if use_buffer:
+        V = torch.zeros((m, v1.shape[0]), dtype=dtype, device=dev)
+        V[0] = v1
+    if selective:
+        # host copies of the recurrence's scalars, in the state's precision
+        npdt = np.float32 if rdtype == torch.float32 else np.float64
+        eps = npdt(torch.finfo(rdtype).eps)
+        sqrt_eps = np.sqrt(eps)
+        om_prev = np.zeros(m, npdt)
+        om_curr = np.zeros(m, npdt)
+        om_curr[0] = eps
+        a_hist = np.zeros(m, npdt)
+        b_hist = np.zeros(m, npdt)
+        idx = np.arange(m)
 
     v_prev, v_curr = bv_zeros_like(v1), v1
     beta_prev = zero
     active = torch.ones((), dtype=torch.bool, device=dev)
     last_alpha = zero
     alphas, betas, actives = [], [], []
-    for _ in range(m):
+    for j in range(m):
         if axpy_ok:
             w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _inner_c(v_curr, w, compensated)
+            alpha = _re(_inner_c(v_curr, w, compensated))
             w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _inner_c(v_curr, w, compensated)
+            alpha = _re(_inner_c(v_curr, w, compensated))
             w = w - alpha * v_curr - beta_prev * v_prev
+        if full_reorth:
+            w = _project_out(V, w, j)
         beta = _norm_c(w, compensated)
+
+        if selective:
+            al, be, bp = npdt(float(alpha)), npdt(float(beta)), npdt(
+                float(beta_prev))
+            a_hist[j], b_hist[j] = al, be
+            # beta_j om_next[i] = b[i] om[i+1] + (a[i] - a[j]) om[i]
+            #                     + b[i-1] om[i-1] - beta_{j-1} om_prev[i]
+            b_im1 = np.where(idx > 0, np.roll(b_hist, 1), npdt(0))
+            om_ip1 = np.roll(om_curr, -1)
+            om_ip1[m - 1] = 0
+            om_im1 = np.roll(om_curr, 1)
+            om_im1[0] = 0
+            raw = (b_hist * om_ip1 + (a_hist - al) * om_curr
+                   + b_im1 * om_im1 - bp * om_prev)
+            inv_beta = npdt(1) / max(be, eps) if be > 0 else npdt(0)
+            noise = eps * (b_hist[0] + be)  # O(eps ||H||) rounding floor
+            om_next = np.where(idx <= j, np.abs(raw) * inv_beta + noise,
+                               npdt(0)).astype(npdt)
+            om_next[j] = eps  # against v_j: locally orthogonal
+            if om_next.max() > sqrt_eps:
+                w = _project_out(V, w, j)
+                om_next = np.where(idx <= j, eps, npdt(0)).astype(npdt)
+                beta = _norm_c(w, compensated)
+                # later omega steps couple through b_hist[j]: keep the
+                # post-sweep beta there
+                b_hist[j] = npdt(float(beta))
+            om_prev, om_curr = om_curr, om_next
+
         ok = torch.logical_and(active, beta > tol)
         inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny), zero)
         v_next = w * torch.where(ok, inv, zero)
@@ -101,35 +194,48 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool):
         alphas.append(alpha_out)
         betas.append(beta_out)
         actives.append(active)
+        if use_buffer and j + 1 < m:
+            V[j + 1] = v_next
         v_prev, v_curr = v_curr, v_next
         beta_prev, active, last_alpha = beta_out, ok, alpha_out
         del w
-    return torch.stack(alphas), torch.stack(betas), torch.stack(actives)
+    return (torch.stack(alphas), torch.stack(betas), torch.stack(actives),
+            V if store_basis else None)
 
 
 def _normalize_start(v0, donate: bool = False):
-    """(v0 / ||v0||, ||v0||). donate=True scales v0's leaves in place (the
-    JAX package donates the buffer; the caller must not reuse v0)."""
+    """(v0 / ||v0||, ||v0||). donate=True scales v0 (its leaves) in place
+    (the JAX package donates the buffer; the caller must not reuse v0)."""
     nrm = _norm_c(v0, False)
     inv = 1.0 / nrm
     if donate:
-        for l in v0.leaves:
-            l.mul_(inv.to(l.dtype))
+        for l in (v0.leaves if isinstance(v0, BlockVec) else (v0,)):
+            l.mul_(inv.to(real_dtype(l.dtype)))
         return v0, nrm
     return v0 / nrm, nrm
 
 
 def lanczos_iteration(matvec: Callable, v0, m: int, tol: float = 1e-12,
+                      reorth=False, store_basis: bool = False,
                       compensated: bool | None = None
                       ) -> LanczosFactorization:
     """Lanczos tridiagonalization from v0 (need not be normalized; its norm
-    is returned). compensated=None resolves by dtype (True in f32)."""
+    is returned). reorth: False | True (full, every step) | "selective".
+    compensated=None resolves by dtype (True in f32)."""
     v1, v0_norm = _normalize_start(v0)
     if compensated is None:
         compensated = _default_compensated(v1.dtype)
-    alphas, betas, active = _lanczos_scan(matvec, v1, m, tol, compensated)
+    alphas, betas, active, V = _lanczos_scan(matvec, v1, m, tol, compensated,
+                                             reorth, store_basis)
     m_eff = int(active.sum())
-    return LanczosFactorization(alphas.cpu(), betas.cpu(), m_eff, v0_norm)
+    return LanczosFactorization(alphas.cpu(), betas.cpu(), m_eff, v0_norm, V)
+
+
+def lanczos_tridiag(matvec, v0, lanc_m: int = 100, tol: float = 1e-12):
+    """(alphas[lanc_m], betas[lanc_m - 1], ||v0||) for spectral-function
+    use (ref src/Lanczos.jl:180-229)."""
+    fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol)
+    return fac.alphas, fac.betas[: lanc_m - 1], fac.v0_norm
 
 
 def tridiag_eigh(alphas, betas, m_eff=None):
@@ -149,6 +255,134 @@ def tridiag_eigh(alphas, betas, m_eff=None):
     return scipy.linalg.eigh_tridiagonal(a, b)
 
 
+def _twopass(matvec, v1, lanc_m: int, tol, compensated: bool):
+    """Pass 1 (alpha, beta), the host tridiagonal solve, pass 2 (psi =
+    sum_j y_j v_j) from the normalized v1. Returns (lowest Ritz value,
+    unnormalized psi, m_eff, evals)."""
+    alphas, betas, active, _ = _lanczos_scan(matvec, v1, lanc_m, tol,
+                                             compensated)
+    m_eff = int(active.sum())
+    evals, evecs = tridiag_eigh(alphas.cpu(), betas.cpu(), m_eff)
+    idx = int(np.argmin(evals))
+    y = np.zeros(lanc_m)
+    y[:m_eff] = evecs[:, idx]
+    psi = _second_pass_accumulate(
+        matvec, v1, torch.as_tensor(y, dtype=real_dtype(v1.dtype),
+                                    device=v1.device), lanc_m, compensated)
+    return float(evals[idx]), psi, m_eff, evals
+
+
+def _random_start(N: int, dtype=torch.float32,
+                  generator: torch.Generator | None = None, mask=None,
+                  device=None):
+    """Random normal start vector on `device` (default: the generator's,
+    else the card); `mask` (bool [N]) zeroes the rows outside an embedded
+    sector, so they are never excited. The default generator is seed 0."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(
+        device, generator if device is None else None)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    v = torch.randn(N, generator=generator, dtype=dtype,
+                    device=generator.device).to(device)
+    if mask is not None:
+        v = torch.where(mask.to(device), v, torch.zeros_like(v))
+    return v
+
+
+def lanczos_extremal(matvec, N: int, lanc_m: int = 100, tol: float = 1e-12,
+                     dtype=torch.float32,
+                     generator: torch.Generator | None = None, mask=None,
+                     v0=None, device=None):
+    """(Emin, Emax) Ritz bounds from one Lanczos run (ref
+    src/Lanczos.jl:26-75), from `v0` or a random start (`_random_start`:
+    real float32 by default, on the matvec's device)."""
+    if v0 is None:
+        if device is None:
+            device = getattr(matvec, "device", None)
+        v0 = _random_start(N, dtype, generator, mask, device)
+    fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol)
+    evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+    return float(evals.min()), float(evals.max())
+
+
+def estimate_energy_bounds(matvec, N: int, lanc_m: int = 80,
+                           tol: float = 1e-12, dtype=torch.float32,
+                           generator: torch.Generator | None = None,
+                           safety: float = 0.01, mask=None, v0=None,
+                           device=None):
+    """Outer estimates (Emin, Emax) of the spectrum for Chebyshev
+    rescaling: one Lanczos run expanded outward by `safety` x half-width,
+    because Chebyshev methods diverge if an eigenvalue maps outside
+    [-1, 1]."""
+    lo, hi = lanczos_extremal(matvec, N, lanc_m=lanc_m, tol=tol, dtype=dtype,
+                              generator=generator, mask=mask, v0=v0,
+                              device=device)
+    pad = safety * 0.5 * (hi - lo) + 1e-6
+    return lo - pad, hi + pad
+
+
+def _start_vector(matvec, N, dtype, generator, mask, v0, device):
+    if v0 is not None:
+        return v0
+    if device is None:
+        device = getattr(matvec, "device", None)
+    return _random_start(N, dtype, generator, mask, device)
+
+
+def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
+                        tol: float = 1e-12, dtype=torch.float32,
+                        generator: torch.Generator | None = None,
+                        reorth="full", mask=None,
+                        compensated: bool | None = None, v0=None,
+                        device=None):
+    """Ground-state energy and vector with a stored basis and
+    reorthogonalization (ref src/Lanczos.jl:78-165), on flat states.
+    Returns (E0, psi, info with residual). reorth: "full" | "selective" |
+    False. Memory is O(lanc_m N): use the restarted or two-pass solvers
+    when the basis does not fit."""
+    v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
+    if reorth is True:
+        reorth = "full"
+    fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol, reorth=reorth,
+                            store_basis=True, compensated=compensated)
+    evals, evecs = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+    k = fac.m_eff
+    idx = int(np.argmin(evals))
+    E0 = float(evals[idx])
+    y = np.zeros(lanc_m)
+    y[:k] = evecs[:, idx]
+    V = fac.basis
+    psi = torch.as_tensor(y, dtype=real_dtype(V.dtype),
+                          device=V.device).to(V.dtype) @ V
+    nrm = _norm_c(psi, False)
+    psi = psi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
+    residual = float(_norm_c(matvec(psi) - psi * E0, False))
+    return E0, psi, {"residual": residual, "m_eff": k, "evals": evals}
+
+
+def lanczos_groundstate_twopass(matvec, N: int, lanc_m: int = 100,
+                                tol: float = 1e-12, dtype=torch.float32,
+                                generator: torch.Generator | None = None,
+                                mask=None, compensated: bool | None = None,
+                                v0=None, device=None):
+    """Memory-lean ground state: pass 1 computes (alpha, beta) with O(3N)
+    memory, the small tridiagonal is solved on the host, pass 2 re-runs the
+    identical recurrence accumulating psi = sum_j y_j v_j. No
+    reorthogonalization: use moderate m or check the residual. A passed
+    `v0` is normalized in place."""
+    v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
+    if compensated is None:
+        compensated = _default_compensated(v0.dtype)
+    v1, _ = _normalize_start(v0, donate=True)
+    del v0
+    E0, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
+    psi, _, residual = _ritz_finalize(matvec, psi)
+    return E0, psi, {"residual": float(residual), "m_eff": m_eff,
+                     "evals": evals}
+
+
 def restart_cycle(matvec, psi, lanc_m: int, tol: float = 1e-12,
                   compensated: bool | None = None, finalize=None):
     """ONE two-pass Lanczos restart cycle from `psi` (consumed: its leaves
@@ -160,34 +394,33 @@ def restart_cycle(matvec, psi, lanc_m: int, tol: float = 1e-12,
         compensated = _default_compensated(psi.dtype)
     v1, _ = _normalize_start(psi, donate=True)
     del psi
-    alphas, betas, active = _lanczos_scan(matvec, v1, lanc_m, tol,
-                                          compensated)
-    m_eff = int(active.sum())
-    evals, evecs = tridiag_eigh(alphas.cpu(), betas.cpu(), m_eff)
-    idx = int(np.argmin(evals))
-    y = np.zeros(lanc_m)
-    y[:m_eff] = evecs[:, idx]
-    psi = _second_pass_accumulate(
-        matvec, v1, torch.as_tensor(y, dtype=v1.dtype, device=v1.device),
-        lanc_m, compensated)
+    E_ritz, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
+    del E_ritz
     fin = _ritz_finalize if finalize is None else finalize
     psi, E, resid = fin(matvec, psi)
     return float(E), psi, {"residual": float(resid), "m_eff": m_eff,
                            "evals": evals}
 
 
-def lanczos_groundstate_restarted(matvec, v0, lanc_m: int = 40,
+def lanczos_groundstate_restarted(matvec, v0=None, lanc_m: int = 40,
                                   cycles: int = 4, tol: float = 1e-12,
                                   target_residual: float | None = None,
                                   compensated: bool | None = None,
-                                  finalize=None):
+                                  finalize=None, N: int | None = None,
+                                  dtype=torch.float32,
+                                  generator: torch.Generator | None = None,
+                                  mask=None, device=None):
     """Restarted two-pass ground state: O(3N) memory, high accuracy.
 
     Each cycle runs the two-pass Lanczos from the previous Ritz vector; a
     Chebyshev-filter polish takes over when restarts stall at the rounding
-    floor. `v0` (a BlockVec) is consumed. Stops early at `target_residual`.
-    The JAX version draws v0 itself from (N, key, mask); here the caller
-    passes it."""
+    floor. `v0` (a BlockVec or a flat tensor) is consumed; without it a
+    flat random start is drawn from (N, dtype, generator, mask) as in the
+    JAX package. Stops early at `target_residual`."""
+    if v0 is None:
+        if N is None:
+            raise ValueError("pass a start vector v0, or N for a random one")
+        v0 = _start_vector(matvec, N, dtype, generator, mask, None, device)
     if compensated is None:
         compensated = _default_compensated(v0.dtype)
     E0 = None
@@ -238,7 +471,7 @@ def _chebyshev_filter(matvec, psi, lo_cut: float, hi: float, degree: int):
     """Amplify spectral weight below `lo_cut` by T_degree of H mapped so
     [lo_cut, hi] -> [-1, 1] (single-vector Chebyshev-filtered subspace
     iteration; needs no orthogonality). Renormalizes the pair each step."""
-    dtype, dev = psi.dtype, psi.device
+    dtype, dev = real_dtype(psi.dtype), psi.device
     c = torch.tensor((hi + lo_cut) / 2.0, dtype=dtype, device=dev)
     h = torch.tensor((hi - lo_cut) / 2.0, dtype=dtype, device=dev)
     tiny = torch.finfo(dtype).tiny
@@ -259,11 +492,11 @@ def _ritz_finalize(matvec, psi_unnorm, compensated: bool = True):
     """Normalize the Ritz vector; return (psi, E = <psi|H|psi>, residual).
     E uses the compensated dot: a naive f32 Rayleigh quotient error is the
     residual floor."""
-    tiny = torch.finfo(psi_unnorm.dtype).tiny
+    tiny = torch.finfo(real_dtype(psi_unnorm.dtype)).tiny
     nrm = _norm_c(psi_unnorm, compensated)
     psi = psi_unnorm / torch.clamp(nrm, min=tiny)
     hpsi = matvec(psi)
-    E = _inner_c(psi, hpsi, compensated)
+    E = _re(_inner_c(psi, hpsi, compensated))
     resid = _norm_c(hpsi - E * psi, compensated)
     return psi, E, resid
 
@@ -272,9 +505,9 @@ def _second_pass_accumulate(matvec, v1, y, m: int, compensated: bool = False):
     """Re-run the Lanczos recurrence from v1 (the same vectors) accumulating
     psi = sum_j y_j v_j without storing the basis. `compensated` and the
     axpy branch must match pass 1 so the basis is reproduced bit for bit."""
-    dtype = v1.dtype
-    tiny = torch.finfo(dtype).tiny
-    zero = torch.zeros((), dtype=dtype, device=v1.device)
+    rdtype = real_dtype(v1.dtype)
+    tiny = torch.finfo(rdtype).tiny
+    zero = torch.zeros((), dtype=rdtype, device=v1.device)
     axpy_ok = getattr(matvec, "supports_axpy", False)
     v_prev, v_curr = bv_zeros_like(v1), v1
     beta_prev = zero
@@ -283,11 +516,11 @@ def _second_pass_accumulate(matvec, v1, y, m: int, compensated: bool = False):
         acc = acc + v_curr * y[j]
         if axpy_ok:
             w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _inner_c(v_curr, w, compensated)
+            alpha = _re(_inner_c(v_curr, w, compensated))
             w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _inner_c(v_curr, w, compensated)
+            alpha = _re(_inner_c(v_curr, w, compensated))
             w = w - alpha * v_curr - beta_prev * v_prev
         beta = _norm_c(w, compensated)
         inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny), zero)

@@ -15,16 +15,19 @@ import torch
 from ..ops.kron_group import KronHamiltonian
 from ..ops.sector_kron import apply_H_sector_kron, make_sector_kron_layout
 from ..utils.compensated import vdot2
+from ..utils.device import resolve_device
+from ..utils.dtypes import complex_dtype
 from .blockvec import BlockVec, bv_random
 
-__all__ = ["groundstate_kron", "kpm_sqw_kron"]
+__all__ = ["groundstate_kron", "kpm_sqw_kron", "run_chebyshev",
+           "run_krylov", "evolve_trajectory"]
 
 
 def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
                      target_residual: float | None = 1e-3,
                      generator: torch.Generator | None = None,
                      fused: bool = True, dtype: torch.dtype | None = None,
-                     device="cpu", v0: BlockVec | None = None):
+                     device=None, v0: BlockVec | None = None):
     """Ground state of a sector_kron model in BlockVec form.
 
     The apply is K1 (`fused`, float32) or the plain blocks apply. K1 takes
@@ -32,11 +35,13 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
     the plain blocks apply, as in the JAX package; on CUDA it raises (pass
     fused=False or dtype=torch.float32). The start is `v0` (copied, e.g. a
     numpy-made start through utils.convert.blockvec_from_numpy) or a random
-    BlockVec from `generator` (default: seed 0 on `device`). Returns (E0,
+    BlockVec from `generator` (default: seed 0 on `device`). `device`
+    defaults to v0's device, else the card (utils.device.resolve_device:
+    without CUDA it raises; pass device="cpu" for a CPU run). Returns (E0,
     psi, info, layout)."""
     if dtype is None:
         dtype = model.dtype
-    device = torch.device(device)
+    device = resolve_device(device, v0)
     if fused and dtype != torch.float32:
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1, which takes float32 "
@@ -129,15 +134,14 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
     float32. The q-points run serially (peak memory independent of
     len(q_list)); kept from the JAX package for parity.
 
-    `device` defaults to psi0's device, else the CPU. Returns (S [nq,
-    n_omega] numpy, info dict with E0/bounds/a/b)."""
+    `device` defaults to psi0's device, else the card (pass device="cpu"
+    for a CPU run). Returns (S [nq, n_omega] numpy, info dict with
+    E0/bounds/a/b)."""
     from .chebyshev import chebyshev_moments, kpm_reconstruct
     from .lanczos import lanczos_iteration, tridiag_eigh
     from ..observables_kron import bv_sz_q_weights
 
-    if device is None:
-        device = psi0.device if psi0 is not None else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, psi0)
     if psi0 is None or E0 is None:
         E0, psi0, info, lay = groundstate_kron(
             model, lanc_m=lanc_m, cycles=cycles,
@@ -197,3 +201,100 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
                                density_2_over_a=False).numpy()
     info.update(E0=float(E0), bounds=(lo - pad, hi + pad), a=a, b=b)
     return S, info
+
+
+# ---------------------------------------------------------------------------
+# flat states (full and embedded models)
+# ---------------------------------------------------------------------------
+
+
+def _domain_wall_start(model, device):
+    from ..models.initial_states import domain_wall_state
+
+    return domain_wall_state(model, dtype=torch.complex64, device=device)
+
+
+def run_chebyshev(model, dt: float, cheb_n: int = 50, lanc_m: int = 80,
+                  backend: str | None = None, device=None,
+                  generator: torch.Generator | None = None):
+    """Domain-wall start -> bounds -> one Chebyshev step -> magnetization
+    and S(q) (ref src/TimeEvolution/Chebyshev.jl:137-157). `device`
+    defaults to the card. Returns (mags, (q, Sq), bounds)."""
+    from ..observables import magnetization_per_site, structure_factor_Sq
+    from ..ops.apply import matvec_fn
+    from .chebyshev import chebyshev_time_evolve
+    from .lanczos import estimate_energy_bounds
+
+    device = resolve_device(device)
+    mv = matvec_fn(model, backend, device=device)
+    psi0 = _domain_wall_start(model, device)
+    bounds = estimate_energy_bounds(mv, model.n_states, lanc_m=lanc_m,
+                                    generator=generator,
+                                    mask=model.valid_mask(device),
+                                    device=device)
+    psi_t = chebyshev_time_evolve(psi0, mv, dt, bounds, cheb_n=cheb_n)
+    return (magnetization_per_site(psi_t, model),
+            structure_factor_Sq(psi_t, model), bounds)
+
+
+def run_krylov(model, dt: float, kry_m: int = 30,
+               backend: str | None = None, device=None):
+    """Domain-wall start -> one Krylov step -> magnetization and S(q) (a
+    working version of the reference's wrapper,
+    src/TimeEvolution/Krylov.jl:204-217). Returns (mags, (q, Sq))."""
+    from ..observables import magnetization_per_site, structure_factor_Sq
+    from ..ops.apply import matvec_fn
+    from .krylov import krylov_time_evolve
+
+    device = resolve_device(device)
+    mv = matvec_fn(model, backend, device=device)
+    psi_t = krylov_time_evolve(_domain_wall_start(model, device), mv, dt,
+                               kry_m=kry_m)
+    return (magnetization_per_site(psi_t, model),
+            structure_factor_Sq(psi_t, model))
+
+
+def evolve_trajectory(model, psi0: torch.Tensor, dt: float, n_steps: int,
+                      method: str = "chebyshev", cheb_n: int = 30,
+                      kry_m: int = 30, Ebounds=None,
+                      backend: str | None = None, observe=None,
+                      device=None,
+                      generator: torch.Generator | None = None):
+    """Evolve a flat state n_steps of size dt, recording
+    `observe(psi, model)` per step (default magnetization_per_site): the
+    trajectory pattern of the reference's examples/example.jl:86-105, with
+    the coefficients computed once. `device` defaults to psi0's. Chebyshev
+    bounds come from estimate_energy_bounds (random start from `generator`)
+    unless `Ebounds` is given. Returns (psi_final, obs [n_steps, ...]
+    numpy)."""
+    from ..observables import magnetization_per_site
+    from ..ops.apply import matvec_fn
+    from .chebyshev import chebyshev_coefficients, chebyshev_time_evolve
+    from .krylov import krylov_time_evolve
+    from .lanczos import estimate_energy_bounds
+
+    if method not in ("chebyshev", "krylov"):
+        raise ValueError(f"unknown method {method!r}")
+    device = resolve_device(device, psi0)
+    mv = matvec_fn(model, backend, device=device)
+    psi = psi0.to(device=device, dtype=complex_dtype(psi0.dtype))
+    if observe is None:
+        observe = magnetization_per_site
+    coeffs = None
+    if method == "chebyshev":
+        if Ebounds is None:
+            Ebounds = estimate_energy_bounds(
+                mv, model.n_states, generator=generator,
+                mask=model.valid_mask(device), device=device)
+        coeffs = chebyshev_coefficients(dt, Ebounds[0], Ebounds[1], cheb_n)
+    obs = []
+    for _ in range(n_steps):
+        if method == "chebyshev":
+            psi = chebyshev_time_evolve(psi, mv, dt, Ebounds, cheb_n=cheb_n,
+                                        coeffs=coeffs)
+        else:
+            psi = krylov_time_evolve(psi, mv, dt, kry_m=kry_m)
+        o = observe(psi, model)
+        obs.append(o.cpu().numpy() if isinstance(o, torch.Tensor)
+                   else np.asarray(o))
+    return psi, np.asarray(obs)

@@ -4,7 +4,8 @@ spindynamics_tpu/utils/compensated.py).
 Ogita-Rump-Oishi Dot2 in the FMA-free form via Dekker splitting: each
 product x_i * y_i = p + e exactly, and the result is sum(e) + sum(p). In f32
 this gives close to twofold working precision; it is what keeps the f32
-Lanczos residual at the 1e-3 band at L=28 and beyond. Real tensors only.
+Lanczos residual at the 1e-3 band at L=28 and beyond. A complex tensor is
+read as its (real, imag) planes (strided views, no copy).
 """
 
 from __future__ import annotations
@@ -48,10 +49,27 @@ def dot2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def norm2(x: torch.Tensor) -> torch.Tensor:
-    """Compensated 2-norm via dot2(x, x)."""
-    return torch.sqrt(torch.clamp(dot2(x, x), min=0))
+    """Compensated 2-norm via dot2(x, x) (per plane for a complex x)."""
+    if x.is_complex():
+        s = dot2(x.real, x.real) + dot2(x.imag, x.imag)
+    else:
+        s = dot2(x, x)
+    return torch.sqrt(torch.clamp(s, min=0))
 
 
 def vdot2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Compensated <x|y> for real tensors."""
-    return dot2(x, y)
+    """Compensated sesquilinear <x|y>: a real 0-d tensor for real inputs, a
+    complex one when either input is complex."""
+    if not (x.is_complex() or y.is_complex()):
+        return dot2(x, y)
+    xr, xi = (x.real, x.imag) if x.is_complex() else (x, None)
+    yr, yi = (y.real, y.imag) if y.is_complex() else (y, None)
+    re = dot2(xr, yr)
+    im = torch.zeros_like(re)
+    if xi is not None and yi is not None:
+        re = re + dot2(xi, yi)
+    if yi is not None:
+        im = im + dot2(xr, yi)
+    if xi is not None:
+        im = im - dot2(xi, yr)
+    return torch.complex(re, im)

@@ -14,33 +14,39 @@ from ..model import _TORCH_DTYPES, SpinModel, build_model
 from ..solvers.blockvec import BlockVec
 
 __all__ = ["model_from_numpy", "model_from_jax_arrays",
-           "blockvec_from_numpy", "blockvec_to_numpy"]
+           "blockvec_from_numpy", "blockvec_to_numpy",
+           "state_from_numpy", "state_to_numpy"]
 
 
-def model_from_numpy(L: int, nup: int, hop_sites, hop_J, field, zz_sites,
-                     zz_J, splits, dtype: torch.dtype | None = None
-                     ) -> SpinModel:
+def model_from_numpy(L: int, nup, hop_sites, hop_J, field, zz_sites, zz_J,
+                     splits=None, dtype: torch.dtype | None = None,
+                     layout: str = "sector_kron") -> SpinModel:
     """Port model from a JAX SpinModel's couplings passed as numpy: bond
-    site pairs, their J values, the onsite field and the kron splits.
-    dtype defaults to that of hop_J."""
+    site pairs, their J values, the onsite field and, for
+    layout="sector_kron", the kron splits. layout is "sector_kron",
+    "embedded" or "full" (nup=None). dtype defaults to that of field."""
     hop_J = np.asarray(hop_J)
     zz_J = np.asarray(zz_J)
+    field = np.asarray(field)
     if dtype is None:
-        dtype = _TORCH_DTYPES[hop_J.dtype]
+        dtype = _TORCH_DTYPES[field.dtype]
     return build_model(
-        int(L), nup=int(nup),
+        int(L), nup=None if nup is None else int(nup),
         hopping=[(int(i), int(j), float(J))
                  for (i, j), J in zip(hop_sites, hop_J)],
-        onsite_field=np.asarray(field),
+        onsite_field=field,
         zz=[(int(i), int(j), float(J)) for (i, j), J in zip(zz_sites, zz_J)],
-        dtype=dtype, kron_splits=tuple(int(s) for s in splits))
+        dtype=dtype, layout=layout,
+        kron_splits=(tuple(int(s) for s in splits)
+                     if layout == "sector_kron" and splits is not None
+                     else None))
 
 
 # the JAX model's fields arrive as numpy arrays either way
 model_from_jax_arrays = model_from_numpy
 
 
-def blockvec_from_numpy(leaves, device="cpu",
+def blockvec_from_numpy(leaves, device,
                         dtype: torch.dtype = torch.float32) -> BlockVec:
     """BlockVec from a list of per-group numpy arrays [C_h, C_m_pad, C_l_pad]."""
     return BlockVec([torch.tensor(np.asarray(l), dtype=dtype, device=device)
@@ -50,3 +56,16 @@ def blockvec_from_numpy(leaves, device="cpu",
 def blockvec_to_numpy(bv: BlockVec) -> list:
     """List of per-group numpy arrays (copied to the host)."""
     return [l.detach().cpu().numpy() for l in bv.leaves]
+
+
+def state_from_numpy(psi, device, dtype: torch.dtype | None = None
+                     ) -> torch.Tensor:
+    """Flat state tensor on `device` from a numpy array, real or complex
+    (copied); dtype defaults to the array's. The device is required, as
+    for blockvec_from_numpy: the state decides where a solver runs."""
+    return torch.tensor(np.asarray(psi), dtype=dtype, device=device)
+
+
+def state_to_numpy(psi: torch.Tensor) -> np.ndarray:
+    """Numpy copy of a flat state, on the host."""
+    return psi.detach().cpu().numpy()

@@ -89,7 +89,7 @@ def _step_both(monkeypatch, L, cheb_n, long_range=False, top_k=None,
         jke.kron_planes_matvec_fn(lj, fused=True),
         tuple(JBV([jnp.asarray(x, jnp.float32) for x in q]) for q in p),
         jnp.asarray(c_ri), (jnp.float32(1.0 / a), jnp.float32(b)), cheb_n)
-    planes = tke.kron_planes_matvec_fn(lt, cheb_top_k=top_k)
+    planes = tke.kron_planes_matvec_fn(lt, device="cpu", cheb_top_k=top_k)
     assert planes.cheb_fused
     n0 = ct.kernel_launch_count()
     ot = tke._cheb_kron_scan(
@@ -134,7 +134,7 @@ _ARGS = ("T", "prev", "acc", "seed", "srcs", "srcsh", "call")
 def _group_args(lt, seed=11):
     """Per K2-fused group, the main path's launch arguments
     (cheb_term.term_launches) from numpy-made curr, prev and acc pairs."""
-    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32)
     curr, prev, acc = (tuple(pt.BlockVec([torch.tensor(x, dtype=torch.float32)
                                           for x in q])
                              for q in _pair(lt, seed + i)) for i in range(3))
@@ -247,7 +247,7 @@ def test_scan_terms_reuse_storage():
     caller's pair_prev is untouched, and the accumulator it was given comes
     back updated in place."""
     _, lt = _models(10, long_range=True, splits=(4, 3, 3))
-    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32)
 
     def pairs():
         return [tuple(pt.BlockVec([torch.tensor(x, dtype=torch.float32)

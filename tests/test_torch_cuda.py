@@ -31,7 +31,8 @@ def test_k1_matches_plain(cuda_device, L, splits):
     bv = bv_random(lay, g, torch.float32, cuda_device)
     b0 = bv_random(lay, g, torch.float32, cuda_device)
     H = pt.KronHamiltonian(lay, dtype=torch.float32, device=cuda_device)
-    Hc = pt.KronHamiltonian(lay, dtype=torch.float32)  # K1's plain version
+    # K1's plain version
+    Hc = pt.KronHamiltonian(lay, device="cpu", dtype=torch.float32)
     s = torch.tensor(-0.37, device=cuda_device)
     for axpy in (False, True):
         n0 = kg.kernel_launch_count()

@@ -144,7 +144,7 @@ def test_planes_apply_matches_jax(zero_im):
     scale = max(float(np.abs(np.asarray(x)).max()) for P in hj
                 for x in P.leaves)
     for fused in (True, False):
-        planes = tke.kron_planes_matvec_fn(lt, fused=fused)
+        planes = tke.kron_planes_matvec_fn(lt, device="cpu", fused=fused)
         assert planes.cheb_fused == fused
         ht = planes(ptp)
         assert _maxdiff(hj, ht) <= 5e-6 * scale
@@ -168,7 +168,7 @@ def test_plain_cheb_step_matches_jax_f32(monkeypatch, zero_im):
     oj = jke.chebyshev_time_evolve_kron(
         _jpair(p), jke.kron_planes_matvec_fn(lj, fused=False), 0.15, Eb,
         cheb_n=n)
-    planes = tke.kron_planes_matvec_fn(lt, cheb_fused=False)
+    planes = tke.kron_planes_matvec_fn(lt, device="cpu", cheb_fused=False)
     ot = tke.chebyshev_time_evolve_kron(_tpair(p), planes, 0.15, Eb,
                                         cheb_n=n)
     for P, Q in zip(oj, ot):
@@ -187,7 +187,7 @@ def test_trajectory_matches_jax_and_conserves():
     bits = jis.domain_wall_bitstring(mj)
     _, oj, ij = jke.evolve_trajectory_kron(mj, bits, fused=False, **kw)
     pair, ot, it = tke.evolve_trajectory_kron(
-        mt, tis.domain_wall_bitstring(mt), **kw)
+        mt, tis.domain_wall_bitstring(mt), device="cpu", **kw)
     assert ot.shape == (3, 10) and pair[0].dtype == torch.float32
     np.testing.assert_allclose(ot, oj, rtol=0, atol=2e-6)
     np.testing.assert_allclose(it["norms"], ij["norms"], rtol=0, atol=2e-6)
@@ -202,13 +202,16 @@ def test_energy_bounds_match_jax():
     bj = jke.kron_energy_bounds(lj, jke.kron_planes_matvec_fn(lj, fused=False),
                                 v0=JBV([jnp.asarray(x, jnp.float32)
                                         for x in v]))
-    bt = tke.kron_energy_bounds(lt, tke.kron_planes_matvec_fn(lt),
+    bt = tke.kron_energy_bounds(lt,
+                                tke.kron_planes_matvec_fn(lt, device="cpu"),
                                 v0=pt.BlockVec([torch.tensor(
                                     x, dtype=torch.float32) for x in v]))
     np.testing.assert_allclose(bt, bj, rtol=0, atol=2e-4)
     # the default start is a seed-7 generator on the apply's device
-    b7 = tke.kron_energy_bounds(lt, tke.kron_planes_matvec_fn(lt))
-    assert b7 == tke.kron_energy_bounds(lt, tke.kron_planes_matvec_fn(lt))
+    b7 = tke.kron_energy_bounds(
+        lt, tke.kron_planes_matvec_fn(lt, device="cpu"))
+    assert b7 == tke.kron_energy_bounds(
+        lt, tke.kron_planes_matvec_fn(lt, device="cpu"))
     assert b7[0] < bt[0] + 0.5 and b7[1] > bt[1] - 0.5
 
 
@@ -217,8 +220,8 @@ def test_krylov_real_time_matches_jax():
     p = _pair(lj, 7)
     oj = jke.krylov_time_evolve_kron(
         _jpair(p), jke.kron_planes_matvec_fn(lj, fused=False), 0.3, kry_m=16)
-    ot = tke.krylov_time_evolve_kron(_tpair(p), tke.kron_planes_matvec_fn(lt),
-                                     0.3, kry_m=16)
+    ot = tke.krylov_time_evolve_kron(
+        _tpair(p), tke.kron_planes_matvec_fn(lt, device="cpu"), 0.3, kry_m=16)
     # the JAX package solves the 16 x 16 tridiagonal in float32, the port
     # in float64: agreement at float32 resolution of the unit-norm state
     assert _maxdiff(oj, ot) <= 2e-6
@@ -229,7 +232,7 @@ def test_imaginary_time_matches_jax(method):
     _, lj, _, lt = _models(10)
     p = _pair(lj, 8)
     pmj = jke.kron_planes_matvec_fn(lj, fused=False)
-    pmt = tke.kron_planes_matvec_fn(lt)
+    pmt = tke.kron_planes_matvec_fn(lt, device="cpu")
     if method == "krylov":
         oj = jke.krylov_imaginary_time_evolve_kron(_jpair(p), pmj, 0.8,
                                                    kry_m=20, renormalize=True)
@@ -261,7 +264,8 @@ def test_lanczos_tridiag_pair_matches_jax_f64(case):
     aj, bj, nj = jke.lanczos_tridiag_pair(
         jke.kron_planes_matvec_fn(lj, fused=False), _jpair(p, jnp.float64), m)
     at, bt, nt = tke.lanczos_tridiag_pair(
-        tke.kron_planes_matvec_fn(lt, fused=False, dtype=torch.float64),
+        tke.kron_planes_matvec_fn(lt, device="cpu", fused=False,
+                                  dtype=torch.float64),
         _tpair(p, torch.float64), m)
     assert at.shape == (m,) and bt.shape == (m - 1,)
     np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=0, atol=1e-10)
@@ -300,10 +304,11 @@ def test_mesh_and_bf16_are_not_ported():
                                    state_dtype=torch.bfloat16)
     # the port reads no environment for routing: K2's use is a field
     planes = tke.kron_planes_matvec_fn(tsk.make_sector_kron_layout(
-        mt, mt.kron_splits))
+        mt, mt.kron_splits), device="cpu")
     assert planes.cheb_fused and planes.cheb_top_k == 32
     with pytest.raises(ValueError, match="fused KronHamiltonian"):
-        tke.kron_planes_matvec_fn(planes.layout, fused=False, cheb_fused=True)
+        tke.kron_planes_matvec_fn(planes.layout, device="cpu", fused=False,
+                                  cheb_fused=True)
 
 
 def test_exact_oracle_matches_port_and_jax():
@@ -321,6 +326,7 @@ def test_exact_oracle_matches_port_and_jax():
     bits = tis.domain_wall_bitstring(mt)
     sz = chip_smoke.exact_sz_trajectory(mt, bits, 0.1, 4)
     _, obs, _ = tke.evolve_trajectory_kron(mt, bits, 0.1, 4, cheb_n=30,
+                                           device="cpu",
                                            state_dtype=torch.float64)
     assert sz.shape == obs.shape == (4, L)
     # float64 states, float32 Chebyshev accumulator (as the JAX package)

@@ -113,7 +113,8 @@ def test_fused_apply_matches_jax_and_x64(L, fuse_crossh):
     bj = jsk.flat_to_blocks(jnp.asarray(x, jnp.float32), lj)
     yj = j_fused(bj, lj, fuse_crossh=fuse_crossh)
     bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
-    H = pt.KronHamiltonian(lt, dtype=torch.float32, fuse_crossh=fuse_crossh)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32,
+                           fuse_crossh=fuse_crossh)
     n0 = kg.kernel_launch_count()
     yt = kg.apply_H_sector_kron_fused(bt, lt, H.tables, H.calls)
     assert kg.kernel_launch_count() == n0  # CPU tensors: the plain version
@@ -135,7 +136,7 @@ def test_fused_top_k_and_unsupported_terms():
     y64 = jsk.apply_H_sector_kron(jnp.asarray(x), None, lj)
     y64 = [np.asarray(b) for b in jsk.flat_to_blocks(y64, lj)]
     bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
-    H = pt.KronHamiltonian(lt, dtype=torch.float32, top_k=3)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32, top_k=3)
     yt = H(pt.BlockVec(bt)).leaves
     scale = max(float(np.abs(b).max()) for b in y64)
     for b, c in zip(yt, y64):
@@ -148,7 +149,7 @@ def test_axpy_seed_matches_separate():
     bx = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
     b0 = tsk.flat_to_blocks(torch.as_tensor(z, dtype=torch.float32), lt)
     s = torch.tensor(-0.37, dtype=torch.float32)
-    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32)
     got = kg.apply_H_sector_kron_fused(bx, lt, H.tables, H.calls,
                                        axpy=(s, b0))
     want = [h + s * w for h, w in zip(
@@ -163,7 +164,7 @@ def test_kron_hamiltonian_module():
     x = _state(mj, lj, 7)
     bv = pt.BlockVec(tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32),
                                         lt))
-    H = pt.KronHamiltonian(lt, dtype=torch.float32)
+    H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32)
     assert H.supports_axpy and H.fused and H.top_k == 32
     want = kg.apply_H_sector_kron_fused(bv.leaves, lt, H.tables,
                                         H.calls)
@@ -186,8 +187,8 @@ def test_kron_hamiltonian_module():
     # the plain apply from f32-rounded tables: the fused path combines the
     # diagonal vectors into D1/D2 before rounding, so the two differ at the
     # f32 table rounding (~1e-8 here), not at f64 eps
-    Hu = pt.KronHamiltonian(lt, dtype=torch.float32, fused=False).to(
-        torch.float64)
+    Hu = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32,
+                            fused=False).to(torch.float64)
     assert not Hu.supports_axpy
     for a, b in zip(Hu(bv.astype(torch.float64)).leaves, y64.leaves):
         assert float((a - b).abs().max()) < 1e-6 * float(b.abs().max() + 1)
@@ -273,7 +274,7 @@ def test_k1_tile_emulation_matches_reference(L, splits):
     mj, lj, mt, lt = _models(L, splits=splits)
     x = _state(mj, lj, 8)
     bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
-    calls = pt.KronHamiltonian(lt, dtype=torch.float32).calls
+    calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
     n_crossh = 0
     for gi in kg.fused_group_set(lt, tsk.default_fused_topk(lt)):
         call = calls[gi]
@@ -299,7 +300,7 @@ def test_k1_tile_emulation_matches_reference(L, splits):
 def test_k1_descriptor_layout_and_refusals():
     assert ctypes.sizeof(kg._KgDesc) == 88 + 40 * 16 + 96 * 8
     mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
-    calls = pt.KronHamiltonian(lt, dtype=torch.float32).calls
+    calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
     with pytest.raises(ValueError, match="tables on"):
         calls[0].descriptor(torch.device("cpu"))
         calls[0].descriptor(torch.device("meta"))

@@ -33,6 +33,15 @@ def test_port_imports_no_jax():
         "import spindynamics_tpu_torch.solvers.chebyshev\n"
         "import spindynamics_tpu_torch.solvers.kron_evolve\n"
         "import spindynamics_tpu_torch.utils.convert\n"
+        "import spindynamics_tpu_torch.utils.device\n"
+        "import spindynamics_tpu_torch.observables\n"
+        "import spindynamics_tpu_torch.ops.apply\n"
+        "import spindynamics_tpu_torch.ops.blocked\n"
+        "import spindynamics_tpu_torch.ops.fused_matvec\n"
+        "import spindynamics_tpu_torch.ops.spin_ops\n"
+        "import spindynamics_tpu_torch.solvers.kpm\n"
+        "import spindynamics_tpu_torch.solvers.krylov\n"
+        "import spindynamics_tpu_torch.solvers.lanczos_sqw\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spindynamics_tpu'))\n"

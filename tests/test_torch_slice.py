@@ -59,7 +59,7 @@ def test_groundstate_matches_jax_and_oracle(jax_groundstate):
         leaves.append(x)
     E0, psi, info, lay = pt.groundstate_kron(
         mt, lanc_m=30, cycles=6, target_residual=1e-4,
-        v0=blockvec_from_numpy(leaves))
+        v0=blockvec_from_numpy(leaves, "cpu"))
     assert psi.dtype == torch.float32
     assert abs(E0 - Ej) < 2e-4
     assert abs(E0 - E64) < 2e-4
@@ -77,7 +77,7 @@ def test_kpm_sqw_on_jax_groundstate(jax_groundstate):
     Sj, _ = sd.kpm_sqw_kron(mj, qs, omega, kpm_m=32, psi0=psij, E0=Ej,
                             info=infoj, bounds=bounds)
     leaves = [np.asarray(l) for l in psij.leaves]
-    psit = blockvec_from_numpy(leaves)
+    psit = blockvec_from_numpy(leaves, "cpu")
     assert all(np.array_equal(a, b)
                for a, b in zip(blockvec_to_numpy(psit), leaves))
     St, info = pt.kpm_sqw_kron(model_from_jax_arrays(
@@ -98,6 +98,7 @@ def test_kpm_sqw_full_path_port_only(jax_groundstate):
     _, _, _, _, E64 = jax_groundstate
     m = pt.heisenberg_chain(L, nup=L // 2)
     S, info = pt.kpm_sqw_kron(m, [np.pi / 2, np.pi], np.linspace(0, 4, 30),
+                              device="cpu",
                               kpm_m=24, lanc_m=30, target_residual=1e-4)
     assert np.all(np.isfinite(S)) and S.min() >= 0.0 and S.max() > 0.0
     assert abs(info["E0"] - E64) < 2e-4

@@ -78,6 +78,7 @@ def test_restarted_groundstate_matches_jax():
 def test_groundstate_L16_oracle_f64():
     m = pt.heisenberg_chain(16, nup=8, dtype=torch.float64)
     E0, psi, info, lay = pt.groundstate_kron(m, lanc_m=40, cycles=6,
+                                             device="cpu",
                                              target_residual=1e-7)
     assert abs(E0 - (-11.67077735)) < 1e-6  # docs/PARITY.md, CPU x64
     assert info["residual"] < 1e-7
@@ -90,9 +91,9 @@ def test_restart_cycle_is_deterministic_f32():
     the second pass relies on."""
     m = pt.xxz_chain(12, Jxy=1.0, Jz=0.8, nup=6)
     lay = tsk.make_sector_kron_layout(m, m.kron_splits)
-    H = pt.KronHamiltonian(lay, dtype=torch.float32)
+    H = pt.KronHamiltonian(lay, device="cpu", dtype=torch.float32)
     g = torch.Generator().manual_seed(3)
-    v = tbv.bv_random(lay, g)
+    v = tbv.bv_random(lay, g, device="cpu")
     runs = [tla.restart_cycle(H, pt.BlockVec([l.clone() for l in v.leaves]),
                               20) for _ in range(2)]
     (E1, p1, i1), (E2, p2, i2) = runs
@@ -159,11 +160,11 @@ def test_basis_state_matches_jax():
     _, _, _, _, lj, lt = _setup(L=16, splits=None)
     for bits in (0b0101010101010101, 0b1111000011110000, 0b0000000011111111):
         a = jbv.bv_basis_state(lj, bits, jnp.float64)
-        b = tbv.bv_basis_state(lt, bits, torch.float64)
+        b = tbv.bv_basis_state(lt, bits, torch.float64, "cpu")
         assert all(np.array_equal(np.asarray(x), y.numpy())
                    for x, y in zip(a.leaves, b.leaves))
     with pytest.raises(ValueError):
-        tbv.bv_basis_state(lt, 0b111, torch.float64)
+        tbv.bv_basis_state(lt, 0b111, torch.float64, "cpu")
 
 
 def test_compensated_dots_match_jax():
