@@ -1,12 +1,17 @@
 """Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths once each, through the entry points a user
+Drives the port's paths once each, through the entry points a user
 calls: the sector_kron ground state of the Heisenberg chain in the Sz=0
 sector (groundstate_kron) and its KPM S(q, omega) (kpm_sqw_kron), with
 every H apply's fused groups through K1, the hand-written CUDA group-apply
 kernel; the domain-wall trajectory of the XXZ chain
 (evolve_trajectory_kron), with every Chebyshev term k >= 2 through K2, the
-hand-written CUDA Chebyshev-term kernel; and the flat-state path on the
+hand-written CUDA Chebyshev-term kernel; the same trajectory with
+bfloat16 states (state_dtype=torch.bfloat16), through the bfloat16
+instances of K1 and K2; the Lanczos S(q, omega) and the correlation
+observables on the kron ground state (lanczos_sqw_kron, szsz_matrix_kron,
+structure_factor_Sq_kron, kpm_correlation_matrix_kron), every H apply
+through K1; and the flat-state path on the
 embedded layout (ground state, Lanczos and KPM S(q, omega), domain-wall
 trajectory on one vector of 2^L amplitudes), with every H apply through K3,
 the hand-written CUDA fused matvec.
@@ -22,11 +27,28 @@ with no result line):
   k2       K2 against its plain version on the card, at L=16 and at --L
            (the K2-fused groups, seeds as on the main path); pads 0; event
            times of K2's part of a term and of a whole term
+  k1-bf16  K1's bfloat16 instance against its plain version on the card, at
+           L=16 and at --L: the bf16 output against the plain version's
+           float32 value before rounding (one rounding: |d| <= 2^-8 |y| +
+           1e-5 max|y|, the second term for the float32 reassociation of the
+           tile sums); pads 0; event times beside the float32 kernel's
+  k2-bf16  K2's bfloat16 instance likewise: next against the float32 x
+           before rounding, the float32 accumulator (updated from the
+           unrounded x) at K2's float32 tolerance; times beside float32
   oracle   L=16 ground state on the card against the CPU x64 energy
   main     --L ground state + S(q, omega) for q = 2 pi k / L, k in (4, 7, L/2)
   evolve-oracle  L=12 domain-wall trajectory on the card (K2) against
            exact evolution (dense H, scipy eigh)
   evolve   --L domain-wall trajectory, 5 steps of dt=0.1, cheb_n=40
+  evolve-bf16  the same trajectory with bfloat16 states and the float32
+           run's bounds: every <Sz_i> within 2e-2 of the float32 run, norm
+           drift < 5e-2, |sum_i <Sz_i>| <= 1e-2, bf16 leaves, the float32
+           run's launch counts, all of them of the bf16 instances; seconds
+           per step and peak memory beside float32; before it an L=12 bf16
+           trajectory against exact evolution at 2e-2
+  kron-sqw --L lanczos_sqw_kron from main's ground state (3 q x 60 steps)
+  kron-obs --L szsz_matrix_kron (diagonal 1/4, rows sum to 0), S(q) >= 0,
+           kpm_correlation_matrix_kron for one B site x 100 moments
   typicality  L=20 <Sz_a(t) Sz_a(0)>_beta=1 at t = 0, 0.5, 1
   k3       K3 against its plain torch version on the card, real and complex,
            at L=16 (the XXZ chain and an all-pairs model) and at --L-flat:
@@ -38,7 +60,12 @@ with no result line):
            K3 against the float64 dense oracle on the host
   flat-main  --L-flat embedded XXZ chain, Sz=0: ground state, lanczos_sqw
            and kpm_sqw at 3 q-points, 5-step domain-wall trajectory, and the
-           same model through the kron layout (K1, K2) as a cross-check
+           same model through the kron layout (K1, K2) as a cross-check:
+           E0, <Sz_i>, and from the kron ground state carried to the flat
+           layout, S(q, omega) (lanczos_sqw_kron against lanczos_sqw: two
+           float32 recurrences, held to 5e-2 of the peak and 1e-3 in each
+           row's weight), szsz and S(q) (kron against flat observables,
+           1e-5)
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^13
@@ -171,9 +198,10 @@ def phase_build():
               f"{info['path']} | {' ; '.join(regs)}")
 
 
-def _k1_inputs(L, dev):
+def _k1_inputs(L, dev, sdt=torch.float32):
     """Layout, kernel calls and main-path-shaped K1 inputs at size L: a
-    random state, the Lanczos axpy operands, and each fused group's seed."""
+    random state of dtype `sdt`, the Lanczos axpy operands, and each fused
+    group's seed (summed in float32, stored in `sdt`, as the apply does)."""
     import spindynamics_tpu_torch as pt
     from spindynamics_tpu_torch.ops import kron_group as kg
     from spindynamics_tpu_torch.ops.sector_kron import (
@@ -185,8 +213,8 @@ def _k1_inputs(L, dev):
     H = pt.KronHamiltonian(lay, dtype=torch.float32, device=dev)
     tables, calls = H.tables, H.calls
     g = torch.Generator(device=dev).manual_seed(L)
-    bv = bv_random(lay, g, torch.float32, dev)
-    b0 = bv_random(lay, g, torch.float32, dev)
+    bv = bv_random(lay, g, sdt, dev)
+    b0 = bv_random(lay, g, sdt, dev)
     s = torch.tensor(-0.37, device=dev)
     fused = sorted(kg.fused_group_set(lay, H.top_k))
     args = []
@@ -195,19 +223,23 @@ def _k1_inputs(L, dev):
         seed = (apply_H_sector_kron(bv.leaves, None, lay, tables,
                                     terms=c.seed_terms, group_filter=(gi,))[gi]
                 if c.has_seed else None)
-        seed_ax = s * b0.leaves[gi] if seed is None else seed + s * b0.leaves[gi]
+        ax = s * b0.leaves[gi].float()
+        seed_ax = (ax if seed is None else seed + ax).to(sdt)
+        seed = None if seed is None else seed.to(sdt)
         srcs = [bv.leaves[x[0]] for x in c.cross]
         srcsh = [bv.leaves[x[0]] for x in c.crossh]
         args.append((bv.leaves[gi], seed, seed_ax, srcs, srcsh, c))
     return m, lay, H, bv, args
 
 
-def _group_work(call, seeded, planes=1):
+def _group_work(call, seeded, planes=1, state_bytes=4):
     """(bytes, flops) of one fused group's kernel launch: the group's own
     tensor read and written once (cross sources are other groups' tensors,
     counted with their own group), the seed and the tables read once, and
     the matrix products of the hi-local terms. K2 (planes=2) also reads
-    prev and acc and writes acc, per plane, and runs the 10-flop epilogue."""
+    prev and acc and writes acc, per plane, and runs the 10-flop epilogue.
+    States take `state_bytes` an element (2 for bfloat16); the tables and
+    K2's accumulator are float32 whatever the state."""
     ch, cmp, clp = call.shape
     n = ch * cmp * clp
     flops = 0
@@ -224,11 +256,12 @@ def _group_work(call, seeded, planes=1):
         tab += clps * clp
     for t in (call.D1, call.D2, call.D3):
         tab += 0 if t is None else t.numel()
+    sd = 1 if seeded else 0
     if planes == 1:
-        words = n * (2 + (1 if seeded else 0)) + tab
-        return 4 * words, flops + 2 * n
-    words = 2 * n * (5 + (1 if seeded else 0)) + tab
-    return 4 * words, 2 * flops + 2 * n * 10
+        return state_bytes * n * (2 + sd) + 4 * tab, flops + 2 * n
+    # per plane: T, prev and the seed in, next out (state); acc in and out
+    return (2 * n * (state_bytes * (3 + sd) + 8) + 4 * tab,
+            2 * flops + 2 * n * 10)
 
 
 def phase_k1(L, dev):
@@ -361,24 +394,210 @@ def phase_k2(L, dev):
     return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound
 
 
-def phase_evolve_oracle(dev):
+def _lift(x):
+    """float32 copies of a tensor, or of a (nested) list or tuple of
+    tensors; None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return type(x)(_lift(y) for y in x)
+
+
+def _one_rounding(out, y32):
+    """(max |out - y32|, the worst |out - y32| over its limit) for a
+    bfloat16 `out` that should be the float32 `y32` rounded once: the limit
+    is 2^-8 |y32| (half a unit in the last place of 8 significand bits) +
+    1e-5 max|y32| (the float32 reassociation of the kernel's tile sums,
+    which can carry a sum across a rounding boundary). A ratio above 1 is an
+    indexing or ordering error, which a loose bf16 tolerance would hide."""
+    d = (out.float() - y32).abs()
+    lim = 2.0 ** -8 * y32.abs() + 1e-5 * float(y32.abs().max()) + 1e-30
+    return float(d.max()), float((d / lim).max())
+
+
+def phase_k1_bf16(L, dev):
+    """K1's bfloat16 instance vs the plain version's float32 value before
+    rounding, on the same CUDA tensors. Returns (max abs err, worst ratio
+    to the one-rounding limit, K1 bf16 ms, plain ms, bound) for the kernel
+    part of one apply at L."""
+    from spindynamics_tpu_torch.ops import kron_group as kg
+
+    bf16 = torch.bfloat16
+    m, lay, H, bv, args = _k1_inputs(L, dev, bf16)
+    abs_err = worst = 0.0
+    n0 = kg.kernel_launch_count(bf16)
+    for (T, seed, seed_ax, srcs, srcsh, c) in args:
+        for sd in (seed, seed_ax):
+            got = kg.kron_group_apply(T, sd, srcs, srcsh, c)
+            y32 = kg.kron_group_apply_reference(
+                T.float(), _lift(sd), _lift(srcs), _lift(srcsh), c)
+            torch.cuda.synchronize()
+            (_, _, _, ch, cm, cl, cmp, clp) = lay.groups[c.gi]
+            if got.dtype != bf16:
+                raise RuntimeError(f"L={L} group {c.gi}: K1 bf16 returned "
+                                   f"{got.dtype}")
+            if got[:, cm:, :].any() or got[:, :, cl:].any():
+                raise RuntimeError(f"L={L} group {c.gi}: pad slots not 0")
+            d, r = _one_rounding(got, y32)
+            abs_err, worst = max(abs_err, d), max(worst, r)
+            del got, y32
+    if kg.kernel_launch_count(bf16) - n0 != 2 * len(args):
+        raise RuntimeError("K1's bf16 launches were not counted as bf16")
+    if not worst <= 1.0:
+        raise RuntimeError(f"L={L}: K1 bf16 is {worst:.2f}x its one-rounding "
+                           f"limit off the plain float32 value")
+    _, _, H32, bv32, args32 = _k1_inputs(L, dev, torch.float32)
+
+    def run(fn, a):
+        def go():
+            for (T, seed, _, srcs, srcsh, c) in a:
+                fn(T, seed, srcs, srcsh, c)
+        return go
+
+    kb = _event_ms(run(kg.kron_group_apply, args))
+    k32 = _event_ms(run(kg.kron_group_apply, args32))
+    pb = _event_ms(run(kg.kron_group_apply_reference, args), reps=10)
+    kb2 = _event_ms(run(kg.kron_group_apply, args))
+    k322 = _event_ms(run(kg.kron_group_apply, args32))
+    full_b = _event_ms(lambda: H(bv))
+    full_32 = _event_ms(lambda: H32(bv32))
+    work = [_group_work(c, seed is not None, state_bytes=2)
+            for (_, seed, _, _, _, c) in args]
+    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    print(f"k1-bf16 L={L}: {len(args)}/{len(lay.groups)} groups | worst "
+          f"|d| / (2^-8 |y| + 1e-5 max|y|) {worst:.3f} (<= 1) against the "
+          f"plain float32 value, max|d| {abs_err:.3e}, pads 0 | kernel part "
+          f"of one apply (median of 20, bf16/f32/plain/bf16/f32): K1 bf16 "
+          f"{kb:.3f} ms, K1 f32 {k32:.3f} ms, plain bf16 {pb:.3f} ms, K1 "
+          f"bf16 {kb2:.3f} ms, K1 f32 {k322:.3f} ms | full apply: bf16 "
+          f"{full_b:.3f} ms, f32 {full_32:.3f} ms | moves "
+          f"{sum(w[0] for w in work) / 1e9:.3f} GB and does "
+          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
+          f"ms by {bound[1]}")
+    return abs_err, worst, min(kb, kb2), pb, bound
+
+
+def _k2_inputs(lay, planes, dev, sdt, seed):
+    """(prev, curr, acc) random pairs, prev and curr in `sdt`, acc float32,
+    and K2's main-path launch arguments for them."""
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.solvers.blockvec import bv_random
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prev, curr, acc = ((bv_random(lay, g, dt, dev), bv_random(lay, g, dt, dev))
+                       for dt in (sdt, sdt, torch.float32))
+    fused = kg.fused_group_set(lay, planes.cheb_top_k)
+    H = planes.H
+    args = [a for _, a in ct.term_launches(lay, H.tables, H.calls, fused,
+                                           prev, curr, acc)]
+    return (prev, curr, acc), fused, args
+
+
+def phase_k2_bf16(L, dev):
+    """K2's bfloat16 instance vs the plain version on the lifted inputs:
+    next against the float32 x before rounding, the float32 accumulator at
+    K2's float32 tolerance. Returns (max abs err of next, worst ratio, K2
+    bf16 ms, plain ms, bound) for K2's part of one term at L."""
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
+    from spindynamics_tpu_torch.solvers import kron_evolve as ke
+
+    bf16 = torch.bfloat16
+    m = _evolve_model(L)
+    lay = make_sector_kron_layout(m, m.kron_splits)
+    planes = ke.kron_planes_matvec_fn(lay, device=dev)
+    H = planes.H
+    pairs, fused, args = _k2_inputs(lay, planes, dev, bf16, L)
+    scal = (0.083, -0.41, 0.37, -0.62)  # 1/a, b, c_r, c_i
+    abs_err = worst = acc_rel = 0.0
+    n0 = ct.kernel_launch_count(bf16)
+    for (T, pv, ac, seed, srcs, srcsh, call) in args:
+        acc_k = tuple(x.clone() for x in ac)
+        acc_p = tuple(x.clone() for x in ac)
+        got = ct.cheb_term_apply(T, pv, acc_k, seed, srcs, srcsh, call, scal)
+        x32 = ct.cheb_term_apply_reference(
+            _lift(T), _lift(pv), acc_p, _lift(seed), _lift(srcs),
+            _lift(srcsh), call, scal)
+        torch.cuda.synchronize()
+        (_, _, _, ch, cm, cl, cmp, clp) = lay.groups[call.gi]
+        for x, y in zip(got, x32):
+            if x.dtype != bf16:
+                raise RuntimeError(f"L={L} group {call.gi}: K2 bf16 stored "
+                                   f"next as {x.dtype}")
+            if x[:, cm:, :].any() or x[:, :, cl:].any():
+                raise RuntimeError(f"L={L} group {call.gi}: pad slots not 0")
+            d, r = _one_rounding(x, y)
+            abs_err, worst = max(abs_err, d), max(worst, r)
+        for x, y in zip(acc_k, acc_p):
+            acc_rel = max(acc_rel, float((x - y).abs().max())
+                          / max(float(y.abs().max()), 1e-30))
+        del got, x32, acc_k, acc_p
+    if ct.kernel_launch_count(bf16) - n0 != len(args):
+        raise RuntimeError("K2's bf16 launches were not counted as bf16")
+    if not worst <= 1.0:
+        raise RuntimeError(f"L={L}: K2 bf16 next is {worst:.2f}x its "
+                           f"one-rounding limit off the plain float32 x")
+    if not acc_rel <= 1e-5:
+        raise RuntimeError(f"L={L}: K2 bf16 acc rel err {acc_rel:.3e} > 1e-5")
+    pairs32, _, args32 = _k2_inputs(lay, planes, dev, torch.float32, L)
+
+    def run(fn, a):
+        def go():
+            for x in a:
+                fn(*x, scal)
+        return go
+
+    kb = _event_ms(run(ct.cheb_term_apply, args))
+    k32 = _event_ms(run(ct.cheb_term_apply, args32))
+    pb = _event_ms(run(ct.cheb_term_apply_reference, args), reps=10)
+    kb2 = _event_ms(run(ct.cheb_term_apply, args))
+    k322 = _event_ms(run(ct.cheb_term_apply, args32))
+    work = [_group_work(a[6], a[3] is not None, planes=2, state_bytes=2)
+            for a in args]
+    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    del args, args32
+    term_b = _event_ms(lambda: ct.cheb_term_fused(
+        lay, H.tables, H.calls, fused, *pairs, scal), reps=10)
+    term_32 = _event_ms(lambda: ct.cheb_term_fused(
+        lay, H.tables, H.calls, fused, *pairs32, scal), reps=10)
+    print(f"k2-bf16 L={L}: {len(fused)}/{len(lay.groups)} groups | next: "
+          f"worst |d| / (2^-8 |x| + 1e-5 max|x|) {worst:.3f} (<= 1) against "
+          f"the plain float32 x, max|d| {abs_err:.3e}; acc (float32, from "
+          f"the unrounded x) max|d|/max|y| {acc_rel:.3e} (<= 1e-5); pads 0 "
+          f"| K2 part of one term (median of 20, bf16/f32/plain/bf16/f32): "
+          f"K2 bf16 {kb:.3f} ms, K2 f32 {k32:.3f} ms, plain bf16 {pb:.3f} "
+          f"ms, K2 bf16 {kb2:.3f} ms, K2 f32 {k322:.3f} ms | whole term "
+          f"(median of 10): bf16 {term_b:.3f} ms, f32 {term_32:.3f} ms | "
+          f"moves {sum(w[0] for w in work) / 1e9:.3f} GB and does "
+          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
+          f"ms by {bound[1]}")
+    return abs_err, worst, min(kb, kb2), pb, bound
+
+
+def phase_evolve_oracle(dev, sdt=torch.float32):
     """L=12 domain-wall trajectory on the card through K2 against exact
-    evolution in float64."""
+    evolution in float64: within 1e-4 for float32 states, within 2e-2 (the
+    accuracy class of one rounding per stored term) for bfloat16 states."""
     import spindynamics_tpu_torch as pt
     from spindynamics_tpu_torch.ops import cheb_term as ct
 
+    tag, tol = (("evolve-oracle", 1e-4) if sdt == torch.float32
+                else ("evolve-bf16 oracle", 2e-2))
     m = _evolve_model(12)
     bits = pt.domain_wall_bitstring(m)
-    n0 = ct.kernel_launch_count()
+    n0 = ct.kernel_launch_count(sdt)
     _, obs, info = pt.evolve_trajectory_kron(m, bits, dt=0.1, n_steps=5,
-                                             cheb_n=40, device=dev)
-    n_k2 = ct.kernel_launch_count() - n0
+                                             cheb_n=40, device=dev,
+                                             state_dtype=sdt)
+    n_k2 = ct.kernel_launch_count(sdt) - n0
     ref = exact_sz_trajectory(m, bits, 0.1, 5)
     err = float(np.abs(obs - ref).max())
-    print(f"evolve-oracle L=12: max |d<Sz_i>| over 5 steps {err:.2e} "
-          f"(<= 1e-4) against exact evolution (924 states, scipy eigh) | "
+    print(f"{tag} L=12: max |d<Sz_i>| over 5 steps {err:.2e} "
+          f"(<= {tol:g}) against exact evolution (924 states, scipy eigh) | "
           f"norm drift {info['norm_drift']:.2e} | K2 launches {n_k2}")
-    if not err <= 1e-4:
+    if not err <= tol:
         raise RuntimeError(f"L=12 trajectory off exact evolution by {err}")
     if not n_k2 > 0:
         raise RuntimeError("the L=12 trajectory launched K2 no time")
@@ -386,8 +605,9 @@ def phase_evolve_oracle(dev):
 
 def phase_evolve(L, dev):
     """The evolve path at L: evolve_trajectory_kron from the domain wall,
-    bounds from its 40-step Lanczos. Returns (K2 launches, planes' args for
-    the profile)."""
+    bounds from its 40-step Lanczos. Returns (K2 launches, the run's info
+    with its observables, launch counts and peak memory added, for the
+    profile and the bfloat16 run beside it)."""
     import spindynamics_tpu_torch as pt
     from spindynamics_tpu_torch.ops import cheb_term as ct
     from spindynamics_tpu_torch.ops import kron_group as kg
@@ -428,7 +648,176 @@ def phase_evolve(L, dev):
         raise RuntimeError(f"sum_i <Sz_i> not conserved: {tot}")
     if not (obs[0][0] > 0.49 and obs[0][L - 1] < -0.49):
         raise RuntimeError("the chain's ends moved in the first step")
+    info = dict(info, obs=obs, launches=(n_k1, n_k2), peak=peak)
     return n_k2, info
+
+
+def phase_evolve_bf16(L, dev, ref):
+    """The same trajectory with bfloat16 states, from the float32 run's
+    bounds (`ref`: phase_evolve's info). Returns the (K1, K2) launch counts
+    of the bfloat16 instances."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import (
+        default_fused_topk, make_sector_kron_layout)
+
+    bf16 = torch.bfloat16
+    m = _evolve_model(L)
+    bits = pt.domain_wall_bitstring(m)
+    # the float32 run's K1 count holds its 40-step bounds Lanczos as well
+    lay = make_sector_kron_layout(m, m.kron_splits)
+    n_bounds = 40 * len(kg.fused_group_set(lay, default_fused_topk(lay)))
+    want = (ref["launches"][0] - n_bounds, ref["launches"][1])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kg.reset_kernel_launch_count()
+    ct.reset_kernel_launch_count()
+    (pair, obs, info), t_all = _sync_time(lambda: pt.evolve_trajectory_kron(
+        m, bits, dt=0.1, n_steps=5, cheb_n=40, Ebounds=ref["Ebounds"],
+        state_dtype=bf16, device=dev))
+    n_k1, n_k2 = kg.kernel_launch_count(bf16), ct.kernel_launch_count(bf16)
+    n_f32 = (kg.kernel_launch_count(torch.float32)
+             + ct.kernel_launch_count(torch.float32))
+    peak = torch.cuda.max_memory_allocated()
+    leaves_bf16 = all(x.dtype == bf16 for P in pair for x in P.leaves)
+    del pair
+    steps, steps32 = info["step_seconds"], ref["step_seconds"]
+    norms = info["norms"]
+    tot = obs.sum(axis=1)
+    dS = float(np.abs(obs - ref["obs"]).max())
+    print(f"evolve-bf16 L={L}: max |d<Sz_i>| against the float32 run over 5 "
+          f"steps {dS:.2e} (<= 2e-2) | norm drift {info['norm_drift']:.2e} "
+          f"(< 5e-2), norms {[f'{x:.5f}' for x in norms]} | max |sum_i "
+          f"<Sz_i>| {float(np.abs(tot).max()):.2e} (<= 1e-2) | seconds per "
+          f"step median {float(np.median(steps)):.3f} (steps "
+          f"{[round(x, 3) for x in steps]}) beside float32 "
+          f"{float(np.median(steps32)):.3f} | all {t_all:.2f} s | peak "
+          f"{peak / 2**30:.2f} GiB beside float32 "
+          f"{ref['peak'] / 2**30:.2f} GiB | bf16 launches K1 {n_k1}, K2 "
+          f"{n_k2} (float32 run without its {n_bounds} bounds launches: "
+          f"{want[0]}, {want[1]}), float32 launches {n_f32}")
+    print(f"evolve-bf16 L={L}: <Sz_i> after step 5 {obs[-1]}")
+    if not leaves_bf16:
+        raise RuntimeError("the bf16 trajectory returned other leaves")
+    if not (np.all(np.isfinite(obs)) and np.all(np.isfinite(norms))):
+        raise RuntimeError("non-finite bf16 trajectory")
+    if not dS <= 2e-2:
+        raise RuntimeError(f"bf16 <Sz_i> off the float32 run by {dS}")
+    if not info["norm_drift"] < 5e-2:
+        raise RuntimeError(f"bf16 norm drift {info['norm_drift']}")
+    if not np.all(np.abs(tot) <= 1e-2):
+        raise RuntimeError(f"bf16 sum_i <Sz_i> not conserved: {tot}")
+    if not (n_k1 > 0 and n_k2 > 0 and n_f32 == 0):
+        raise RuntimeError(f"the bf16 run launched K1 {n_k1} and K2 {n_k2} "
+                           f"times in bf16 and {n_f32} kernels in float32")
+    if (n_k1, n_k2) != want:
+        raise RuntimeError(f"bf16 launch counts ({n_k1}, {n_k2}) differ "
+                           f"from the float32 run's {want}")
+    return n_k1, n_k2
+
+
+def phase_kron_sqw(L, dev, psi, E0, info):
+    """lanczos_sqw_kron at L from the main path's ground state: 3 q-points
+    x 60 pair steps, every apply through K1. Returns K1's launch count."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import kron_group as kg
+
+    m = pt.heisenberg_chain(L, nup=L // 2)
+    qs = [2 * np.pi * k / L for k in (4, 7, L // 2)]
+    omega = np.linspace(0.0, 4.0, 200)
+    lanc_m = 60
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.reset_kernel_launch_count()
+    (S, sinfo), t = _sync_time(lambda: pt.lanczos_sqw_kron(
+        m, qs, omega, lanc_m=lanc_m, eta=0.1, psi0=psi, E0=E0, info=info,
+        device=dev))
+    launches = kg.kernel_launch_count(torch.float32)
+    peak = torch.cuda.max_memory_allocated()
+    smax = float(np.abs(S).max())
+    print(f"kron-sqw L={L}: lanczos_sqw_kron 3 q x {lanc_m} pair steps "
+          f"(plane_mode {sinfo['plane_mode']}) {t:.2f} s, "
+          f"{t / (len(qs) * lanc_m) * 1e3:.2f} ms per pair step | peak "
+          f"{peak / 2**30:.2f} GiB | K1 launches {launches} | S shape "
+          f"{S.shape}, max {smax:.4f}, peak omega per q "
+          f"{[float(omega[i]) for i in S.argmax(axis=1)]}")
+    if not launches > 0:
+        raise RuntimeError("lanczos_sqw_kron launched K1 no time")
+    if not (S.shape == (len(qs), omega.shape[0]) and np.all(np.isfinite(S))
+            and smax > 0 and S.min() >= -1e-6 * smax
+            and np.all(S.max(axis=1) > 0)):
+        raise RuntimeError("kron S(q, omega) not finite, positive rows")
+    return launches
+
+
+def phase_kron_obs(L, dev, psi, E0, info):
+    """The correlation observables of the main path's ground state at L:
+    szsz_matrix_kron (diagonal 1/4 to 1e-5, rows sum to 0 to 1e-4 in the
+    Sz=0 sector), S(q) >= 0, and kpm_correlation_matrix_kron for the middle
+    site as B, 100 moments."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
+
+    m = pt.heisenberg_chain(L, nup=L // 2)
+    lay = make_sector_kron_layout(m, m.kron_splits)
+    (szsz, si), t_zz = _sync_time(lambda: pt.szsz_matrix_kron(psi, lay))
+    (q, Sq), t_sq = _sync_time(lambda: pt.structure_factor_Sq_kron(psi, lay))
+    diag = float((torch.diagonal(szsz) - 0.25).abs().max())
+    rows = float(szsz.sum(dim=1).abs().max())
+    sym = float((szsz - szsz.T).abs().max())
+    nn = float(torch.diagonal(szsz, 1).mean())
+    omega = np.linspace(-2.0, 6.0, 200)
+    kg.reset_kernel_launch_count()
+    (C, cinfo), t_c = _sync_time(lambda: pt.kpm_correlation_matrix_kron(
+        m, omega, n=100, psi0=psi, E0=E0, info=info, sites=(L // 2,),
+        device=dev))
+    launches = kg.kernel_launch_count(torch.float32)
+    np.set_printoptions(precision=4, suppress=True, linewidth=250)
+    print(f"kron-obs L={L}: szsz_matrix_kron {t_zz:.3f} s, max |diag - 1/4| "
+          f"{diag:.2e} (<= 1e-5), max |row sum| {rows:.2e} (<= 1e-4), "
+          f"asymmetry {sym:.1e}, mean <Sz_i Sz_i+1> {nn:.5f}, max |<Sz_i>| "
+          f"{float(si.abs().max()):.2e} | structure_factor_Sq_kron "
+          f"{t_sq:.3f} s, min {Sq.min():.2e}, S(pi) {Sq[L // 2]:.4f} | "
+          f"kpm_correlation_matrix_kron (B = site {L // 2}, 100 moments + 40 "
+          f"bounds steps) {t_c:.2f} s, C shape {C.shape}, max {C.max():.4f} "
+          f"at A = site {int(C.max(axis=(1, 2)).argmax())}, K1 launches "
+          f"{launches}")
+    print(f"kron-obs L={L}: S(q) {Sq}")
+    if not (diag <= 1e-5 and rows <= 1e-4 and sym <= 1e-6):
+        raise RuntimeError("szsz matrix: diagonal, row sums or symmetry off")
+    if not (np.all(np.isfinite(Sq)) and Sq.min() >= -1e-5):
+        raise RuntimeError(f"S(q) negative or not finite: {Sq}")
+    if not (C.shape == (L, 1, omega.shape[0]) and np.all(np.isfinite(C))
+            and C.max() > 0 and launches > 0):
+        raise RuntimeError("kpm_correlation_matrix_kron: not finite, zero "
+                           "or without K1")
+    # the on-site column carries the largest weight
+    if int(C.max(axis=(1, 2)).argmax()) != L // 2:
+        raise RuntimeError("the on-site correlation is not the largest")
+
+
+def kron_to_flat(psi, lay, dev):
+    """The flat vector of 2^L amplitudes (bit i = site i) of a kron
+    BlockVec: rank (h, m, l) of a group holds the amplitude of the state
+    whose hi, mid and lo bit fields are the parts' rank-ordered states."""
+    from spindynamics_tpu_torch.ops import sector_kron as sk
+
+    L1, L2, L3 = lay.splits
+    perms = sk.kron_part_perms(lay.splits)
+    out = torch.zeros(1 << lay.L, dtype=psi.dtype, device=dev)
+    for x, (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in zip(psi.leaves,
+                                                         lay.groups):
+        hi, mid, lo = (torch.as_tensor(
+            sk._perm_sector_states(Lp, k, pm).astype(np.int64), device=dev)
+            for Lp, k, pm in ((L3, k_h, perms[2]), (L2, k_m, perms[1]),
+                              (L1, k_l, perms[0])))
+        idx = ((hi[:, None, None] << (L1 + L2)) | (mid[None, :, None] << L1)
+               | lo[None, None, :])
+        out[idx.reshape(-1)] = x[:hi.shape[0], :cm, :cl].reshape(-1)
+    return out
 
 
 def phase_typicality(dev):
@@ -833,8 +1222,46 @@ def phase_flat_main(L, dev):
 
     # the same model on the kron layout: two layouts, three kernels
     mk = _evolve_model(L)
-    (Ek, _, ik, _), t_k = _sync_time(lambda: pt.groundstate_kron(
+    (Ek, psik, ik, layk), t_k = _sync_time(lambda: pt.groundstate_kron(
         mk, lanc_m=lanc_m, cycles=6, target_residual=1e-3))
+    # the kron ground state carried to the flat layout: the same state
+    # through both layouts' Lanczos S(q, omega) and observables
+    (Sk, _), t_sk = _sync_time(lambda: pt.lanczos_sqw_kron(
+        mk, qs, omega, lanc_m=sqw_m, eta=0.1, psi0=psik, E0=Ek))
+    psif = kron_to_flat(psik, layk, dev)
+    Sf = pt.lanczos_sqw(psif, m, qs, omega, lanc_m=sqw_m, eta=0.1, matvec=mv)
+    zk, sk_ = pt.szsz_matrix_kron(psik, layk)
+    zf, sf_ = pt.szsz_matrix(psif, m)
+    _, Sqk = pt.structure_factor_Sq_kron(psik, layk)
+    _, Sqf = pt.structure_factor_Sq(psif, m)
+    dnorm = abs(float(torch.linalg.vector_norm(psif)) - 1.0)
+    dSqw = float(np.abs(Sk - Sf).max()) / float(Sf.max())
+    dSqw_gs = float(np.abs(Sk - S).max()) / float(S.max())
+    dW = float(np.abs(Sk.sum(axis=1) / Sf.sum(axis=1) - 1.0).max())
+    dzz = max(float((zk - zf).abs().max()), float((sk_ - sf_).abs().max()))
+    dSq = float(np.abs(Sqk - Sqf.cpu().numpy()).max())
+    del psik, psif
+    print(f"flat-main L={L} against the kron layout, from the kron ground "
+          f"state carried to the flat layout (norm off 1 by {dnorm:.1e}): "
+          f"lanczos_sqw_kron {t_sk:.2f} s against lanczos_sqw, max |dS| / "
+          f"max S {dSqw:.2e} (<= 5e-2; against the flat path's own ground "
+          f"state {dSqw_gs:.2e}), weight per q off by {dW:.2e} (<= 1e-3) | "
+          f"szsz and <Sz_i> max |d| {dzz:.2e} (<= 1e-5) | S(q) max |d| "
+          f"{dSq:.2e} (<= 1e-5)")
+    if not dnorm <= 1e-5:
+        raise RuntimeError("the kron state lost norm on the way to flat")
+    # Two float32 Lanczos recurrences without reorthogonalization: S^z_q
+    # psi0 is close to one eigenstate, its Ritz pair converges within a few
+    # steps, and from there the coefficients of the two layouts drift apart
+    # (measured on this model at L=26: 3e-3 to 7e-2 of the peak for 6 to 60
+    # steps at eta=0.1, 2e-2 at 60). What the quadrature keeps is the
+    # weight: each row's integral agrees far tighter than its ripple.
+    if not (dSqw <= 5e-2 and dW <= 1e-3):
+        raise RuntimeError(f"kron and flat S(q, omega) differ by {dSqw} of "
+                           f"the peak, {dW} in weight")
+    if not (dzz <= 1e-5 and dSq <= 1e-5):
+        raise RuntimeError(f"kron and flat observables differ: szsz {dzz}, "
+                           f"S(q) {dSq}")
     (_, obs_k, _), t_ek = _sync_time(lambda: pt.evolve_trajectory_kron(
         mk, pt.domain_wall_bitstring(mk), dt=0.1, n_steps=n_steps,
         cheb_n=cheb_n))
@@ -983,22 +1410,34 @@ def main(argv=None):
 
     phase_device()
     dev = torch.device("cuda")
-    import spindynamics_tpu_torch  # noqa: F401  (pins TF32 off)
+    from spindynamics_tpu_torch import BlockVec  # (the import pins TF32 off)
 
     phase_build()
     phase_k1(16, dev)
     abs_err, rel_err, k_ms, p_ms, bound1 = phase_k1(args.L, dev)
     phase_k2(16, dev)
     abs_err2, rel_err2, k2_ms, p2_ms, bound2 = phase_k2(args.L, dev)
+    phase_k1_bf16(16, dev)
+    b1_err, _, b1_ms, b1_plain, b1_bound = phase_k1_bf16(args.L, dev)
+    phase_k2_bf16(16, dev)
+    b2_err, _, b2_ms, b2_plain, b2_bound = phase_k2_bf16(args.L, dev)
     phase_oracle(dev)
     launches, psi, E0, kinfo = phase_main(args.L, dev)
     if args.profile:
         phase_profile(args.L, dev, psi, kinfo)
-    del psi
+    # the ground state waits on the host while the trajectories run, so
+    # their peak memory is their own
+    psi = BlockVec([x.cpu() for x in psi.leaves])
     phase_evolve_oracle(dev)
     launches2, einfo = phase_evolve(args.L, dev)
     if args.profile:
         phase_profile_term(args.L, dev, einfo)
+    phase_evolve_oracle(dev, torch.bfloat16)
+    b1_launches, b2_launches = phase_evolve_bf16(args.L, dev, einfo)
+    psi = BlockVec([x.to(dev) for x in psi.leaves])
+    phase_kron_sqw(args.L, dev, psi, E0, kinfo)
+    phase_kron_obs(args.L, dev, psi, E0, kinfo)
+    del psi
     phase_typicality(dev)
     k3 = phase_k3(args.L_flat, dev)
     if args.k3_tiles:
@@ -1031,6 +1470,32 @@ def main(argv=None):
         "plain_ms": p2_ms,
         "bound_ms": bound2[0],
         "bound_by": bound2[1],
+        "library_ms": None,
+        "L": args.L,
+    }, {
+        "name": "K1 fused kron group apply (bf16 state)",
+        "route": "cuda",
+        "source": "spindynamics_tpu_torch/csrc/kron_group.cu",
+        "replaces": "spindynamics_tpu/ops/pallas_kron.py:217",
+        "launches": b1_launches,
+        "max_abs_err": b1_err,
+        "ms": b1_ms,
+        "plain_ms": b1_plain,
+        "bound_ms": b1_bound[0],
+        "bound_by": b1_bound[1],
+        "library_ms": None,
+        "L": args.L,
+    }, {
+        "name": "K2 fused Chebyshev term (bf16 state)",
+        "route": "cuda",
+        "source": "spindynamics_tpu_torch/csrc/cheb_term.cu",
+        "replaces": "spindynamics_tpu/ops/pallas_cheb.py:64",
+        "launches": b2_launches,
+        "max_abs_err": b2_err,
+        "ms": b2_ms,
+        "plain_ms": b2_plain,
+        "bound_ms": b2_bound[0],
+        "bound_by": b2_bound[1],
         "library_ms": None,
         "L": args.L,
     }, {

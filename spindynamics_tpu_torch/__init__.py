@@ -6,7 +6,11 @@ KPM moments and K1, the fused kron group apply, as a hand-written CUDA
 kernel for Hopper: ops/kron_group.py, csrc/kron_group.cu), and kron time
 evolution (Chebyshev and Krylov real and imaginary time, the domain-wall
 trajectory, quantum typicality: solvers/kron_evolve.py) with K2, the fused
-Chebyshev term, in CUDA (ops/cheb_term.py, csrc/cheb_term.cu); and the
+Chebyshev term, in CUDA (ops/cheb_term.py, csrc/cheb_term.cu), both kernels
+also for bfloat16 states (evolve_trajectory_kron(state_dtype=
+torch.bfloat16)); the Lanczos S(q, omega) and the correlation observables on
+kron states (lanczos_sqw_kron, kpm_correlation_matrix_kron,
+observables_kron.py); and the
 flat-state path on the full and embedded layouts (ops/apply.py with the
 blocked apply, the flat Lanczos, Chebyshev, Krylov, Lanczos-S(q, omega) and
 KPM solvers, observables.py, the flat runners) with K3, the fused matvec,
@@ -35,7 +39,9 @@ from .models.xxz import heisenberg_chain, xxz_chain  # noqa: E402
 from .observables import (  # noqa: E402
     connected_correlations, magnetization_per_site, structure_factor_Sq,
     structure_factor_Sq_dict, szsz_matrix)
-from .observables_kron import magnetization_per_site_kron  # noqa: E402
+from .observables_kron import (  # noqa: E402
+    bv_sz_q, connected_correlations_kron, magnetization_per_site_kron,
+    structure_factor_Sq_kron, szsz_matrix_kron)
 from .ops.apply import (  # noqa: E402
     FlatHamiltonian, apply_H, apply_rescaled_H, build_dense_H, matvec_fn)
 from .ops.fused_matvec import (  # noqa: E402
@@ -57,8 +63,8 @@ from .solvers.lanczos import (  # noqa: E402
     lanczos_tridiag)
 from .solvers.lanczos_sqw import lanczos_sqw  # noqa: E402
 from .solvers.runners import (  # noqa: E402
-    evolve_trajectory, groundstate_kron, kpm_sqw_kron, run_chebyshev,
-    run_krylov)
+    evolve_trajectory, groundstate_kron, kpm_correlation_matrix_kron,
+    kpm_sqw_kron, lanczos_sqw_kron, run_chebyshev, run_krylov)
 from .utils.device import resolve_device  # noqa: E402
 
 __all__ = [
@@ -77,6 +83,12 @@ __all__ = [
     "chebyshev_time_evolve_kron",
     "kron_energy_bounds",
     "magnetization_per_site_kron",
+    "lanczos_sqw_kron",
+    "kpm_correlation_matrix_kron",
+    "szsz_matrix_kron",
+    "connected_correlations_kron",
+    "structure_factor_Sq_kron",
+    "bv_sz_q",
     "domain_wall_bitstring",
     "neel_bitstring",
     "polarized_bitstring",

@@ -1,4 +1,5 @@
-// K2: fused Chebyshev evolution term for Hopper (sm_90a), float32 states.
+// K2: fused Chebyshev evolution term for Hopper (sm_90a), for float32 and
+// bfloat16 states.
 //
 // Replaces the Pallas TPU kernel spindynamics_tpu/ops/pallas_cheb.py:
 // _build_term_call. One term k >= 2 of the Chebyshev-Bessel step
@@ -26,6 +27,12 @@
 // is read by the thread that then writes next there, and by no other. T
 // and the cross sources are read by many blocks and are never written.
 //
+// State types. A template on the state's element type, like K1. With
+// bfloat16 (the TPU kernel's state_dtype=bfloat16) T, prev, the seeds and
+// the cross sources are bfloat16 and next is stored bfloat16, rounded once
+// to nearest even; the accumulator pair stays float and is updated from the
+// unrounded float x (pallas_cheb.py:171-178), in the same operation order.
+//
 // Bound. Twice K1's matrix-product flops per group (two planes) against
 // ~12 state-sized f32 streams (T, prev, acc, seed in; next, acc out, per
 // plane), so it is compute-bound on the CUDA cores like K1. A later PR can
@@ -44,15 +51,16 @@ struct CtDesc {
   KgDesc re;            // the re plane as K1 sees it: out = next_re, T =
                         // T_re, seed = seed_re, cross/crossh src = re
                         // sources, and the group's tables
-  float* next_im;       // [ch, cmp, clp]; may be prev_im
-  const float* T_im;
-  const float* seed_im; // NULL iff re.seed is NULL
-  const float* prev_re; // may be re.out
-  const float* prev_im;
-  float* acc_re;        // read and written in place
-  float* acc_im;
-  const float* cross_src_im[KG_MAX_CROSS];
-  const float* crossh_src_im[KG_MAX_CROSSH];
+                        // (re.state_type is the launch's state type)
+  void* next_im;        // [ch, cmp, clp], state type; may be prev_im
+  const void* T_im;     // state type, as seed_im and prev_*
+  const void* seed_im;  // NULL iff re.seed is NULL
+  const void* prev_re;  // may be re.out
+  const void* prev_im;
+  float* acc_re;        // float whatever the state type; read and written
+  float* acc_im;        // in place
+  const void* cross_src_im[KG_MAX_CROSS];
+  const void* crossh_src_im[KG_MAX_CROSSH];
   float a_inv, b, c_r, c_i;
 };
 
@@ -71,6 +79,7 @@ __device__ __forceinline__ void term_element(
   ai = ai + c.c_i * xr + c.c_r * xi;
 }
 
+template <class S>
 __global__ void __launch_bounds__(NT)
 cheb_term_kernel(const __grid_constant__ CtDesc c) {
   __shared__ __align__(16) Smem sm;
@@ -79,10 +88,12 @@ cheb_term_kernel(const __grid_constant__ CtDesc c) {
   const int m0 = blockIdx.y * BM;
   const int h = blockIdx.z;
 
+  const S* T_re = static_cast<const S*>(d.T);
+  const S* T_im = static_cast<const S*>(c.T_im);
   float acc_re[4][4], acc_im[4][4];
-  tile_products(acc_re, sm, d, d.T, [&](int k) { return d.cross[k].src; },
+  tile_products(acc_re, sm, d, T_re, [&](int k) { return d.cross[k].src; },
                 h, m0, l0);
-  tile_products(acc_im, sm, d, c.T_im,
+  tile_products(acc_im, sm, d, T_im,
                 [&](int k) { return c.cross_src_im[k]; }, h, m0, l0);
 
   const float two_ai = 2.f * c.a_inv;
@@ -94,14 +105,14 @@ cheb_term_kernel(const __grid_constant__ CtDesc c) {
     if (m >= d.cmp) break;
     float4 tr, ti;
     const float4 hr = hi_local_row(
-        d, acc_re[i], d.T, d.seed, [&](int k) { return d.crossh[k].src; },
-        h, m, l, tr);
+        d, acc_re[i], T_re, static_cast<const S*>(d.seed),
+        [&](int k) { return d.crossh[k].src; }, h, m, l, tr);
     const float4 hi = hi_local_row(
-        d, acc_im[i], c.T_im, c.seed_im,
+        d, acc_im[i], T_im, static_cast<const S*>(c.seed_im),
         [&](int k) { return c.crossh_src_im[k]; }, h, m, l, ti);
     const size_t idx = (size_t)h * d.cmp * d.clp + (size_t)m * d.clp + l;
-    const float4 pr = ld4(c.prev_re + idx);
-    const float4 pi = ld4(c.prev_im + idx);
+    const float4 pr = ld4(static_cast<const S*>(c.prev_re) + idx);
+    const float4 pi = ld4(static_cast<const S*>(c.prev_im) + idx);
     float4 ar = ld4(c.acc_re + idx);
     float4 ai = ld4(c.acc_im + idx);
     float4 xr, xi;
@@ -113,10 +124,10 @@ cheb_term_kernel(const __grid_constant__ CtDesc c) {
                  ar.z, ai.z);
     term_element(c, two_ai, hr.w, hi.w, tr.w, ti.w, pr.w, pi.w, xr.w, xi.w,
                  ar.w, ai.w);
-    *reinterpret_cast<float4*>(d.out + idx) = xr;
-    *reinterpret_cast<float4*>(c.next_im + idx) = xi;
-    *reinterpret_cast<float4*>(c.acc_re + idx) = ar;
-    *reinterpret_cast<float4*>(c.acc_im + idx) = ai;
+    st4(static_cast<S*>(d.out) + idx, xr);
+    st4(static_cast<S*>(c.next_im) + idx, xi);
+    st4(c.acc_re + idx, ar);
+    st4(c.acc_im + idx, ai);
   }
 }
 
@@ -132,6 +143,10 @@ extern "C" int ct_launch(const CtDesc* desc, void* stream) {
       c.prev_im == nullptr || c.acc_re == nullptr || c.acc_im == nullptr ||
       (d.seed == nullptr) != (c.seed_im == nullptr))
     return (int)cudaErrorInvalidValue;
-  cheb_term_kernel<<<grid_of(d), NT, 0, static_cast<cudaStream_t>(stream)>>>(c);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d.state_type == KG_STATE_F32)
+    cheb_term_kernel<float><<<grid_of(d), NT, 0, st>>>(c);
+  else
+    cheb_term_kernel<__nv_bfloat16><<<grid_of(d), NT, 0, st>>>(c);
   return (int)cudaGetLastError();
 }

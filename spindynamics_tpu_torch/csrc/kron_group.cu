@@ -1,4 +1,5 @@
-// K1: fused sector_kron group apply for Hopper (sm_90a), float32.
+// K1: fused sector_kron group apply for Hopper (sm_90a), for float32 and
+// bfloat16 states.
 //
 // Replaces the Pallas TPU kernel spindynamics_tpu/ops/pallas_kron.py:
 // _build_group_call. For one kron group with state T [ch, cmp, clp] it
@@ -23,6 +24,15 @@
 // order: no atomics and no read-modify-write, so the apply is
 // deterministic (the two-pass Lanczos regenerates its basis bit for bit).
 //
+// State types. The kernel is a template on the state's element type. With
+// bfloat16 (the TPU kernel's state_dtype=bfloat16) T, the seed and every
+// cross source are bfloat16 in memory, widened to float as they are staged
+// or loaded; the tables and the register accumulator stay float, so every
+// product is exact in float, and the one rounding (to nearest even) is the
+// tile's single store. The TPU kernel needs an f32 VMEM scratch and a
+// two-pass table split for that; here it is the same gather with 8-byte
+// loads and one 8-byte store.
+//
 // Bound. At L=28 one apply moves ~98 GFLOP through the matrix products
 // against ~1 GB of state traffic, so it is compute-bound; this version
 // runs f32 FMAs on the CUDA cores (67 TFLOP/s on the H100 SXM data sheet).
@@ -33,8 +43,10 @@
 // Interface: plain C, loaded with ctypes. kg_launch takes a host pointer to
 // a KgDesc (kron_tile.cuh; mirrored by ctypes structures in
 // ops/kron_group.py) and a cudaStream_t, launches on that stream and returns
-// cudaGetLastError(). The descriptor, the tile GEMM and the epilogue's
-// hi-local sum live in kron_tile.cuh, shared with K2 (cheb_term.cu).
+// cudaGetLastError(); KgDesc.state_type picks the instance, and any other
+// value is refused with cudaErrorInvalidValue. The descriptor, the tile
+// GEMM and the epilogue's hi-local sum live in kron_tile.cuh, shared with
+// K2 (cheb_term.cu).
 
 #include "kron_tile.cuh"
 
@@ -42,6 +54,7 @@ namespace {
 
 using namespace kron_tile;
 
+template <class S>
 __global__ void __launch_bounds__(NT)
 kron_group_kernel(const __grid_constant__ KgDesc d) {
   __shared__ __align__(16) Smem sm;
@@ -49,8 +62,9 @@ kron_group_kernel(const __grid_constant__ KgDesc d) {
   const int m0 = blockIdx.y * BM;
   const int h = blockIdx.z;
 
+  const S* T = static_cast<const S*>(d.T);
   float acc[4][4];
-  tile_products(acc, sm, d, d.T, [&](int c) { return d.cross[c].src; },
+  tile_products(acc, sm, d, T, [&](int c) { return d.cross[c].src; },
                 h, m0, l0);
 
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
@@ -61,10 +75,10 @@ kron_group_kernel(const __grid_constant__ KgDesc d) {
     if (m >= d.cmp) break;
     float4 t;
     const float4 r = hi_local_row(
-        d, acc[i], d.T, d.seed, [&](int c) { return d.crossh[c].src; },
-        h, m, l, t);
-    *reinterpret_cast<float4*>(
-        d.out + (size_t)h * d.cmp * d.clp + (size_t)m * d.clp + l) = r;
+        d, acc[i], T, static_cast<const S*>(d.seed),
+        [&](int c) { return d.crossh[c].src; }, h, m, l, t);
+    st4(static_cast<S*>(d.out) + (size_t)h * d.cmp * d.clp +
+            (size_t)m * d.clp + l, r);
   }
 }
 
@@ -75,6 +89,10 @@ extern "C" int kg_desc_size(void) { return (int)sizeof(KgDesc); }
 extern "C" int kg_launch(const KgDesc* desc, void* stream) {
   const KgDesc& d = *desc;
   if (!desc_ok(d)) return (int)cudaErrorInvalidValue;
-  kron_group_kernel<<<grid_of(d), NT, 0, static_cast<cudaStream_t>(stream)>>>(d);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d.state_type == KG_STATE_F32)
+    kron_group_kernel<float><<<grid_of(d), NT, 0, st>>>(d);
+  else
+    kron_group_kernel<__nv_bfloat16><<<grid_of(d), NT, 0, st>>>(d);
   return (int)cudaGetLastError();
 }

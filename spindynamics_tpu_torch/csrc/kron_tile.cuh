@@ -10,9 +10,17 @@
 // (re, im) plane. Each thread's result for an element depends only on that
 // element's inputs and a fixed operation order, so both kernels are
 // deterministic.
+//
+// The state's element type S is a template parameter: float, or
+// __nv_bfloat16 for the half-width amplitude mode. States, seeds and cross
+// sources are converted to float as they are staged into shared memory or
+// loaded in the epilogue; the tables, the shared tiles and the accumulators
+// are float whatever S is, so a bf16 amplitude times a float table entry is
+// exact in float and the sum is rounded once, by the kernel's store.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -20,8 +28,12 @@
 #define KG_MAX_CROSSH 8
 #define KG_MAX_MIDS 4
 
+// KgDesc.state_type: the element type of every state tensor of a launch
+#define KG_STATE_F32 0
+#define KG_STATE_BF16 1
+
 struct KgCross {        // lo|mid term
-  const float* src;     // source group [ch, cmp_s, clp_s]
+  const void* src;      // source group [ch, cmp_s, clp_s], state type
   const float* A;       // one-hot lo factor [clp_s, clp]
   int cmp_s, clp_s;
   int r0, c0, ln;
@@ -34,7 +46,7 @@ struct KgMid {
 };
 
 struct KgCrossH {       // mid|hi term: one hi run x 1..KG_MAX_MIDS mid runs
-  const float* src;     // source group [ch_s, cmp_s, clp]
+  const void* src;      // source group [ch_s, cmp_s, clp], state type
   int ch_s, cmp_s;
   int rb0, cb0, lnb;
   int n_mids;
@@ -42,9 +54,9 @@ struct KgCrossH {       // mid|hi term: one hi run x 1..KG_MAX_MIDS mid runs
 };
 
 struct KgDesc {
-  float* out;           // [ch, cmp, clp]
-  const float* T;       // [ch, cmp, clp]
-  const float* seed;    // [ch, cmp, clp] or NULL
+  void* out;            // [ch, cmp, clp], state type
+  const void* T;        // [ch, cmp, clp], state type
+  const void* seed;     // [ch, cmp, clp] or NULL, state type
   const float* D1;      // [cmp, clp] or NULL
   const float* D2;      // [ch, cmp] or NULL
   const float* D3;      // [ch, clp] or NULL
@@ -52,6 +64,7 @@ struct KgDesc {
   const float* W_mid_T; // [cmp, cmp] or NULL
   int ch, cmp, clp;
   int n_cross, n_crossh;
+  int state_type;       // KG_STATE_F32 or KG_STATE_BF16
   KgCross cross[KG_MAX_CROSS];
   KgCrossH crossh[KG_MAX_CROSSH];
 };
@@ -70,7 +83,8 @@ struct Smem {
 
 // The launch checks both kernels share: tile pads and cross-term counts.
 inline bool desc_ok(const KgDesc& d) {
-  return d.ch >= 1 && d.cmp >= 1 && d.clp >= 1 && d.clp % BL == 0 &&
+  return (d.state_type == KG_STATE_F32 || d.state_type == KG_STATE_BF16) &&
+         d.ch >= 1 && d.cmp >= 1 && d.clp >= 1 && d.clp % BL == 0 &&
          d.cmp % BK == 0 && d.n_cross >= 0 && d.n_cross <= KG_MAX_CROSS &&
          d.n_crossh >= 0 && d.n_crossh <= KG_MAX_CROSSH;
 }
@@ -79,25 +93,59 @@ inline dim3 grid_of(const KgDesc& d) {
   return dim3(d.clp / BL, (d.cmp + BM - 1) / BM, d.ch);
 }
 
+// Element loads and the 4-wide row access of both state types. A bfloat16 is
+// the high half of a float, so widening it is a shift; four of them are one
+// 8-byte vector.
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void st4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+// the one rounding of a bf16 launch: round to nearest even
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned int*>(&lo);
+  u.y = *reinterpret_cast<const unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 // acc += scale * A[rows] @ B[:, l0:l0+BL] for tile rows m in [m0, m0+BM):
 // A row of output row m is A + (m + a_shift) * lda, valid for m in
-// [mlo, mhi) (zero elsewhere); B is [K, ldb]; K is a multiple of BK.
+// [mlo, mhi) (zero elsewhere); B is [K, ldb]; K is a multiple of BK. One of
+// A and B is a state (float or bfloat16), the other a float table.
+template <class TA, class TB>
 __device__ __forceinline__ void gemm_segment(
-    float (&acc)[4][4], Smem& sm, const float* __restrict__ A, int lda,
+    float (&acc)[4][4], Smem& sm, const TA* __restrict__ A, int lda,
     int a_shift, int mlo, int mhi, float scale,
-    const float* __restrict__ B, int ldb, int K, int m0, int l0) {
+    const TB* __restrict__ B, int ldb, int K, int m0, int l0) {
   const int tid = threadIdx.x;
   const int ty = tid / 32, tx = tid % 32;
   const int ar = tid / BK, ak = tid % BK;              // A stage coords
   const int bk = tid / (BL / 4), bc = (tid % (BL / 4)) * 4;  // B stage coords
   const int m = m0 + ar;
   const bool a_ok = m >= mlo && m < mhi;
-  const float* a_ptr = a_ok ? A + (size_t)(m + a_shift) * lda + ak : A;
-  const float* b_ptr = B + (size_t)bk * ldb + l0 + bc;
+  const TA* a_ptr = a_ok ? A + (size_t)(m + a_shift) * lda + ak : A;
+  const TB* b_ptr = B + (size_t)bk * ldb + l0 + bc;
   const int ntiles = K / BK;
 
-  float a_reg = a_ok ? a_ptr[0] * scale : 0.f;
-  float4 b_reg = *reinterpret_cast<const float4*>(b_ptr);
+  float a_reg = a_ok ? ldf(a_ptr) * scale : 0.f;
+  float4 b_reg = ld4(b_ptr);
   sm.A[0][ak][ar] = a_reg;
   *reinterpret_cast<float4*>(&sm.B[0][bk][bc]) = b_reg;
   __syncthreads();
@@ -105,9 +153,8 @@ __device__ __forceinline__ void gemm_segment(
     const int cur = t & 1;
     const bool more = t + 1 < ntiles;
     if (more) {
-      a_reg = a_ok ? a_ptr[(t + 1) * BK] * scale : 0.f;
-      b_reg = *reinterpret_cast<const float4*>(
-          b_ptr + (size_t)(t + 1) * BK * ldb);
+      a_reg = a_ok ? ldf(a_ptr + (t + 1) * BK) * scale : 0.f;
+      b_reg = ld4(b_ptr + (size_t)(t + 1) * BK * ldb);
     }
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -128,20 +175,16 @@ __device__ __forceinline__ void gemm_segment(
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // The tile's matrix products for state T (one plane): T[h] @ W_lo,
 // W_mid^T @ T[h], and val * S[h, r0+i] @ A for every lo|mid cross term
 // whose mid rows meet the tile. src_of(c) is cross term c's source group
-// in the same plane as T.
-template <class SrcOf>
+// in the same plane as T (an untyped pointer to elements of type S).
+template <class S, class SrcOf>
 __device__ __forceinline__ void tile_products(
-    float (&acc)[4][4], Smem& sm, const KgDesc& d, const float* T,
+    float (&acc)[4][4], Smem& sm, const KgDesc& d, const S* T,
     SrcOf src_of, int h, int m0, int l0) {
   const int cmp = d.cmp, clp = d.clp;
-  const float* Th = T + (size_t)h * cmp * clp;
+  const S* Th = T + (size_t)h * cmp * clp;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -154,7 +197,8 @@ __device__ __forceinline__ void tile_products(
   for (int c = 0; c < d.n_cross; ++c) {   // lo|mid: val * S[h, r0+i] @ A
     const KgCross& x = d.cross[c];
     if (m0 + BM <= x.c0 || m0 >= x.c0 + x.ln) continue;  // block-uniform
-    gemm_segment(acc, sm, src_of(c) + (size_t)h * x.cmp_s * x.clp_s, x.clp_s,
+    gemm_segment(acc, sm, static_cast<const S*>(src_of(c)) +
+                 (size_t)h * x.cmp_s * x.clp_s, x.clp_s,
                  x.r0 - x.c0, x.c0, x.c0 + x.ln, x.val, x.A, clp, x.clp_s,
                  m0, l0);
   }
@@ -163,11 +207,11 @@ __device__ __forceinline__ void tile_products(
 // The hi-local sum of H at out[h, m, l:l+4] for one plane:
 //   seed + T * (D1 + D2[h, m] + D3[h, l]) + acc_row + mid|hi slice adds.
 // t returns T[h, m, l:l+4]. srch_of(c) is mid|hi term c's source group in
-// T's plane; seed may be NULL.
-template <class SrcOf>
+// T's plane (untyped, elements of type S); seed may be NULL.
+template <class S, class SrcOf>
 __device__ __forceinline__ float4 hi_local_row(
-    const KgDesc& d, const float (&acc_row)[4], const float* T,
-    const float* seed, SrcOf srch_of, int h, int m, int l, float4& t) {
+    const KgDesc& d, const float (&acc_row)[4], const S* T,
+    const S* seed, SrcOf srch_of, int h, int m, int l, float4& t) {
   const int cmp = d.cmp, clp = d.clp;
   const size_t idx = (size_t)h * cmp * clp + (size_t)m * clp + l;
   t = ld4(T + idx);
@@ -190,11 +234,12 @@ __device__ __forceinline__ float4 hi_local_row(
     const KgCrossH& x = d.crossh[c];
     if (h < x.cb0 || h >= x.cb0 + x.lnb) continue;
     const int srow = min(max(h + x.rb0 - x.cb0, 0), x.ch_s - 1);
-    const float* S = srch_of(c) + (size_t)srow * x.cmp_s * clp;
+    const S* Sh = static_cast<const S*>(srch_of(c)) +
+                  (size_t)srow * x.cmp_s * clp;
     for (int k = 0; k < x.n_mids; ++k) {
       const KgMid& mr = x.mids[k];
       if (m < mr.ca0 || m >= mr.ca0 + mr.lna) continue;
-      const float4 s = ld4(S + (size_t)(mr.ra0 + m - mr.ca0) * clp + l);
+      const float4 s = ld4(Sh + (size_t)(mr.ra0 + m - mr.ca0) * clp + l);
       r.x += mr.val * s.x; r.y += mr.val * s.y;
       r.z += mr.val * s.z; r.w += mr.val * s.w;
     }

@@ -1,11 +1,16 @@
-"""Observables on BlockVec kron states (port of the S(q, omega),
-magnetization and Sz-apply parts of spindynamics_tpu/observables_kron.py).
+"""Observables on BlockVec kron states (port of the unsharded parts of
+spindynamics_tpu/observables_kron.py).
 
 S^z_q = L^{-1/2} sum_r e^{iqr} Sz_r is diagonal with a per-axis additive
 weight w(h, m, l) = w_hi[h] + w_mid[m] + w_lo[l], so phi = S^z_q |psi> is one
 elementwise pass per leaf, held as a real (re, im) plane pair. Every
-diagonal one-site moment is a function of the per-axis marginals of a
-weight (|psi|^2 for <Sz_i>), so one pass gives all L sites.
+diagonal observable is a function of the per-axis marginals of a weight
+(|psi|^2 for <Sz_i> and <Sz_i Sz_j>): the 1-D marginals give all L one-site
+moments and the same-part pair correlators, the 2-D marginals the
+cross-part ones, so one pass over the state gives all L^2 correlators (ref
+src/Observables.jl:14-110 loops scalars). The sharded forms
+(szsz_matrix_kron_sharded, magnetization_per_site_kron_sharded) wait for
+the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -16,8 +21,10 @@ import torch
 from .ops.sector_kron import SectorKronLayout, _perm_sector_states, kron_part_perms
 from .solvers.blockvec import BlockVec
 
-__all__ = ["bv_sz_q_weights", "bv_sz_q_apply", "bv_probs", "bv_site_moments",
-           "magnetization_per_site_kron", "bv_apply_sz"]
+__all__ = ["bv_sz_q_weights", "bv_sz_q_apply", "bv_sz_q", "bv_probs",
+           "bv_site_moments", "magnetization_per_site_kron",
+           "szsz_matrix_kron", "connected_correlations_kron",
+           "structure_factor_Sq_kron", "bv_apply_sz"]
 
 
 def _sz_tables(layout: SectorKronLayout):
@@ -76,21 +83,40 @@ def bv_sz_q_weights(layout: SectorKronLayout, q: float, hi_lens=None,
     return out
 
 
-def bv_sz_q_apply(x: BlockVec, weights):
-    """Apply bv_sz_q_weights to a real BlockVec; returns the (re, im)
-    BlockVec pair. (The JAX version also takes an (re, im) pair; no caller
-    of the port needs it.)"""
+def bv_sz_q_apply(x, weights):
+    """Apply bv_sz_q_weights to a real BlockVec or an (re, im) BlockVec
+    pair; returns the (re, im) BlockVec pair."""
+    re_in, im_in = x if isinstance(x, tuple) else (x, None)
     shapes = ((1, 1, -1), (1, -1, 1), (-1, 1, 1))
     out_r, out_i = [], []
-    for leaf, wv in zip(x.leaves, weights):
+    for gi, wv in enumerate(weights):
+        leaf = re_in.leaves[gi]
 
         def w(p):
             return torch.as_tensor(wv[p], device=leaf.device).to(
                 leaf.dtype).reshape(shapes[p % 3])
 
-        out_r.append(leaf * sum(w(p) for p in range(3)))
-        out_i.append(leaf * sum(w(3 + p) for p in range(3)))
+        wr = sum(w(p) for p in range(3))
+        wi = sum(w(3 + p) for p in range(3))
+        if im_in is None:
+            out_r.append(leaf * wr)
+            out_i.append(leaf * wi)
+        else:
+            ileaf = im_in.leaves[gi]
+            out_r.append(leaf * wr - ileaf * wi)
+            out_i.append(ileaf * wr + leaf * wi)
     return BlockVec(out_r), BlockVec(out_i)
+
+
+def bv_sz_q(x, layout: SectorKronLayout, q: float):
+    """phi = S^z_q |psi> of a real BlockVec or an (re, im) pair, as an
+    (re, im) pair (ref Sz_q_vector, src/Hamiltonian.jl:218-234). For many
+    q-points make the weights once per q with bv_sz_q_weights and call
+    bv_sz_q_apply."""
+    re0 = x[0] if isinstance(x, tuple) else x
+    hi_lens = [l.shape[0] for l in re0.leaves]
+    dtype = np.float64 if re0.dtype == torch.float64 else np.float32
+    return bv_sz_q_apply(x, bv_sz_q_weights(layout, q, hi_lens, dtype=dtype))
 
 
 def bv_probs(x) -> list:
@@ -146,6 +172,62 @@ def magnetization_per_site_kron(x, layout: SectorKronLayout) -> torch.Tensor:
     """<Sz_i> per site of a BlockVec or an (re, im) BlockVec pair, in one
     pass (ref src/Observables.jl:14-36)."""
     return bv_site_moments(bv_probs(x), layout)
+
+
+def szsz_matrix_kron(x, layout: SectorKronLayout):
+    """(SzSz[i, j], S_i): all pair correlators and magnetizations of a
+    BlockVec or an (re, im) pair in one pass. Same-part pairs contract the
+    1-D axis marginal of |psi|^2 against sz_i sz_j (the diagonal included:
+    sz_i^2 = 1/4); cross-part pairs contract the 2-D marginal against
+    sz_i x sz_j. The only O(N) work is the marginal sums (replaces the
+    O(N L^2) loop of src/Observables.jl:66-72)."""
+    sz = _sz_tables(layout)
+    lens = layout.splits
+    L = layout.L
+    off = (0, lens[0], lens[0] + lens[1])
+    probs = bv_probs(x)
+    dtype, dev = probs[0].dtype, probs[0].device
+    szsz = torch.zeros((L, L), dtype=dtype, device=dev)
+    si = torch.zeros(L, dtype=dtype, device=dev)
+
+    def block(p):
+        return slice(off[p], off[p] + lens[p])
+
+    for w, (k_h, k_m, k_l, *_r) in zip(probs, layout.groups):
+        kp = (k_l, k_m, k_h)
+        S = [torch.as_tensor(sz[p][kp[p]], dtype=dtype, device=dev)
+             for p in range(3)]
+        M_lm, M_hl, M_hm = w.sum(dim=0), w.sum(dim=1), w.sum(dim=2)
+        m1 = (M_lm.sum(dim=0), M_lm.sum(dim=1), M_hm.sum(dim=1))
+        for p in range(3):
+            si[block(p)] += m1[p] @ S[p]
+            szsz[block(p), block(p)] += (S[p] * m1[p][:, None]).T @ S[p]
+        # cross-part blocks [L_pa, L_pb] = S_pa^T M2 S_pb, M2 indexed
+        # (pa rank, pb rank)
+        for pa, pb, M2 in ((0, 1, M_lm.T), (1, 2, M_hm.T), (0, 2, M_hl.T)):
+            blk = S[pa].T @ M2 @ S[pb]
+            szsz[block(pa), block(pb)] += blk
+            szsz[block(pb), block(pa)] += blk.T
+    return szsz, si
+
+
+def connected_correlations_kron(x, layout: SectorKronLayout) -> torch.Tensor:
+    """C_r = (1/L) sum_i [<Sz_i Sz_{i+r}> - <Sz_i><Sz_{i+r}>], periodic wrap
+    (ref src/Observables.jl:44-95), of a BlockVec or an (re, im) pair."""
+    from .observables import _connected_from_szsz
+
+    szsz, si = szsz_matrix_kron(x, layout)
+    return _connected_from_szsz(szsz, si, layout.L)
+
+
+def structure_factor_Sq_kron(x, layout: SectorKronLayout):
+    """S(q) = FFT_r C_r at q = 2 pi n / L (ref src/Observables.jl:101-110).
+    C_r is L numbers: the FFT runs on the host, and (q, S_q) come back as
+    numpy arrays, as from the JAX package."""
+    C_r = connected_correlations_kron(x, layout).cpu().numpy()
+    S_q = np.real(np.fft.fft(C_r))
+    q = 2.0 * np.pi * np.arange(layout.L) / layout.L
+    return q, S_q
 
 
 def bv_apply_sz(x: BlockVec, layout: SectorKronLayout, site: int) -> BlockVec:

@@ -21,6 +21,11 @@ with K1), built with nvcc for sm_90a on first use and loaded with ctypes.
 `cheb_term_apply_reference` is its plain torch version: the wrapper
 `cheb_term_apply` uses it for tensors on the CPU and only there; a CUDA
 tensor launches the kernel or raises.
+
+States are float32 or bfloat16. With bfloat16 the terms, the seeds and the
+cross sources are bfloat16 in memory and the next term is stored bfloat16
+(one rounding), while the accumulator pair stays float32 and is updated
+from the unrounded float32 x, as in the TPU kernel.
 """
 
 from __future__ import annotations
@@ -36,11 +41,12 @@ from .kron_group import (
     _MAX_CROSSH,
     _check_tensor,
     _KgDesc,
+    _state_type,
     _unsupported_terms,
     fused_group_set,
     kron_group_apply_reference,
 )
-from .sector_kron import SectorKronLayout, apply_H_sector_kron
+from .sector_kron import SectorKronLayout, _lift, apply_H_sector_kron
 
 __all__ = [
     "cheb_scan_terms_fused",
@@ -69,7 +75,8 @@ class _CtDesc(ctypes.Structure):
 _SRC = CSRC / "cheb_term.cu"
 _HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
-_LAUNCHES = 0
+# launches per state dtype: each instance of the kernel has its own count
+_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
 
 
 def build_kernel() -> dict:
@@ -92,14 +99,16 @@ def build_kernel() -> dict:
     return info
 
 
-def kernel_launch_count() -> int:
-    """Number of K2 launches since import (or the last reset)."""
-    return _LAUNCHES
+def kernel_launch_count(dtype=None) -> int:
+    """Number of K2 launches since import (or the last reset): of the
+    instance for states of `dtype` (torch.float32 or torch.bfloat16), or of
+    both when None."""
+    return sum(_LAUNCHES.values()) if dtype is None else _LAUNCHES[dtype]
 
 
 def reset_kernel_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 def term_descriptor(call, device) -> _CtDesc:
@@ -119,15 +128,17 @@ def _combine(h, T, prev, acc, scal, out=None):
     """The term's epilogue on one group in torch, in the TPU kernel's
     operation order (pallas_cheb.py:165-178): x = (h - b T) * (2/a) - prev
     per plane; acc updated in place. Returns (x_re, x_im), written into
-    `out` when given (which may be prev)."""
+    `out` when given (which may be prev). With bfloat16 T and prev, h is
+    float32 and so is x: acc takes the unrounded x, and the returned term
+    is x rounded once to bfloat16."""
     a_inv, b, c_r, c_i = scal
     two_ai = 2.0 * a_inv
-    xr = (h[0] - b * T[0]) * two_ai - prev[0]
-    xi = (h[1] - b * T[1]) * two_ai - prev[1]
+    xr = (h[0] - b * _lift(T[0])) * two_ai - _lift(prev[0])
+    xi = (h[1] - b * _lift(T[1])) * two_ai - _lift(prev[1])
     acc[0].add_(c_r * xr).sub_(c_i * xi)
     acc[1].add_(c_i * xr).add_(c_r * xi)
     if out is None:
-        return xr, xi
+        return xr.to(T[0].dtype), xi.to(T[1].dtype)
     out[0].copy_(xr)
     out[1].copy_(xi)
     return out
@@ -138,7 +149,9 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
     """One fused group of one Chebyshev term: K2 on CUDA tensors, its plain
     version on CPU tensors.
 
-    T, prev: (re, im) pairs [ch, cmp, clp] (the current and previous terms);
+    T, prev: (re, im) pairs [ch, cmp, clp] (the current and previous terms),
+    float32 or bfloat16, and every other state tensor (seed, sources, out)
+    in the same dtype;
     acc: the (re, im) accumulator pair, float32, UPDATED IN PLACE (the
     alias of pallas_cheb.py:232); seed: (re, im) pair or None; srcs / srcsh:
     (re, im) source pairs of the lo|mid / mid|hi cross terms, in `call`'s
@@ -147,7 +160,6 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
     term into, which may be `prev` itself (each element of prev is read
     before the same thread writes next there). Returns the next term
     (x_re, x_im), in `out` or in new tensors."""
-    global _LAUNCHES
     dev = T[0].device
     if dev.type == "cpu":
         return cheb_term_apply_reference(T, prev, acc, seed, srcs, srcsh,
@@ -157,19 +169,23 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
     if len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh):
         raise ValueError(f"group {call.gi}: expected {len(call.cross)} + "
                          f"{len(call.crossh)} source pairs")
-    for name, pair in (("state", T), ("prev", prev), ("acc", acc),
-                       ("seed", seed), ("out", out)):
+    state_type = _state_type(T[0], "K2")
+    sdt = T[0].dtype
+    for name, pair, dt in (("state", T, sdt), ("prev", prev, sdt),
+                           ("acc", acc, torch.float32), ("seed", seed, sdt),
+                           ("out", out, sdt)):
         for x in (() if pair is None else pair):
-            _check_tensor(x, call.shape, dev, name, "K2")
+            _check_tensor(x, call.shape, dev, name, "K2", dt)
     for S, shp in zip(srcs, call.cross_shapes):
         for x in S:
-            _check_tensor(x, shp, dev, "lo|mid source", "K2")
+            _check_tensor(x, shp, dev, "lo|mid source", "K2", sdt)
     for S, shp in zip(srcsh, call.crossh_shapes):
         for x in S:
-            _check_tensor(x, shp, dev, "mid|hi source", "K2")
+            _check_tensor(x, shp, dev, "mid|hi source", "K2", sdt)
     if _LIB is None:
         build_kernel()
     d = term_descriptor(call, dev)
+    d.re.state_type = state_type
     nr, ni = ((torch.empty_like(T[0]), torch.empty_like(T[1]))
               if out is None else out)
     d.re.out, d.re.T, d.next_im, d.T_im = (
@@ -190,7 +206,7 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
     if err != 0:
         raise RuntimeError(f"K2 launch failed for group {call.gi}: "
                            f"cudaError {err}")
-    _LAUNCHES += 1
+    _LAUNCHES[sdt] += 1
     return (nr, ni) if out is None else out
 
 
@@ -198,10 +214,13 @@ def cheb_term_apply_reference(T, prev, acc, seed, srcs, srcsh, call, scal,
                               out=None):
     """Plain torch version of K2 (same arguments, same in-place acc update,
     same output), in the state's dtype: K1's plain version per plane, then
-    the epilogue."""
+    the epilogue. bfloat16 states are lifted to float32 (K1's sum is not
+    rounded on the way), acc takes the unrounded x and the next term is
+    rounded once."""
     h = tuple(kron_group_apply_reference(
-        T[p], None if seed is None else seed[p], [s[p] for s in srcs],
-        [s[p] for s in srcsh], call) for p in (0, 1))
+        _lift(T[p]), None if seed is None else _lift(seed[p]),
+        [_lift(s[p]) for s in srcs], [_lift(s[p]) for s in srcsh], call)
+        for p in (0, 1))
     return _combine(h, T, prev, acc, scal, out)
 
 
@@ -209,8 +228,10 @@ def term_seed(blocks, layout, tables, call, extra):
     """The (re, im) seed of one fused group's K2 launch: the plain apply's
     `call.seed_terms` (W_hi, and the mid|hi terms when K2 does not fuse
     them) per plane, plus the group's unsupported lo|mid entries `extra`
-    ((re, im) or None). None when the group has neither."""
+    ((re, im) or None). None when the group has neither. For bfloat16
+    blocks both parts are float32 and the sum is rounded once."""
     gi = call.gi
+    sdt = blocks[0][gi].dtype
     seed = None
     if call.has_seed:
         seed = tuple(apply_H_sector_kron(b, None, layout, tables,
@@ -220,7 +241,7 @@ def term_seed(blocks, layout, tables, call, extra):
     if extra is not None:
         seed = extra if seed is None else (seed[0] + extra[0],
                                            seed[1] + extra[1])
-    return seed
+    return None if seed is None else (seed[0].to(sdt), seed[1].to(sdt))
 
 
 def term_launches(layout, tables, calls, fused, pair_prev, pair_curr, acc):

@@ -14,6 +14,12 @@ into `build/spindynamics_tpu_torch/` of the checkout (`ops/cuda_build.py`)
 and loaded with ctypes. `kron_group_apply_reference` is its plain torch version: the
 wrapper `kron_group_apply` uses it for tensors on the CPU and only there; a
 CUDA tensor launches the kernel or raises.
+
+States are float32 or bfloat16 (the JAX package's `state_dtype=bfloat16`
+amplitude mode): with bfloat16 leaves the state, the seed and the cross
+sources are bfloat16 in memory, the tables stay float32, every sum is taken
+in float32 and each output is rounded once. The state dtype is the leaves',
+not the module's: one KronHamiltonian (float32 tables) serves both.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from .sector_kron import (
     SectorKronLayout,
     _as_tensor,
     _contract,
+    _lift,
     apply_H_sector_kron,
     default_fused_topk,
     kron_tables,
@@ -192,6 +199,8 @@ def fused_group_tables(layout: SectorKronLayout, dtype, device, memo=None):
 
 _MAX_CROSS, _MAX_CROSSH, _MAX_MIDS = 16, 8, 4  # csrc/kron_tile.cuh KG_MAX_*
 _TILE_M, _TILE_L = 8, 128  # K1 needs cmp % 8 == 0 and clp % 128 == 0
+# KgDesc.state_type (csrc/kron_tile.cuh KG_STATE_*) per state dtype
+_STATE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class _KgCross(ctypes.Structure):
@@ -222,6 +231,7 @@ class _KgDesc(ctypes.Structure):
                 ("ch", ctypes.c_int), ("cmp", ctypes.c_int),
                 ("clp", ctypes.c_int),
                 ("n_cross", ctypes.c_int), ("n_crossh", ctypes.c_int),
+                ("state_type", ctypes.c_int),
                 ("cross", _KgCross * _MAX_CROSS),
                 ("crossh", _KgCrossH * _MAX_CROSSH)]
 
@@ -229,7 +239,8 @@ class _KgDesc(ctypes.Structure):
 _SRC = CSRC / "kron_group.cu"
 _HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
-_LAUNCHES = 0
+# launches per state dtype: each instance of the kernel has its own count
+_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
 
 
 def build_kernel() -> dict:
@@ -252,14 +263,16 @@ def build_kernel() -> dict:
     return info
 
 
-def kernel_launch_count() -> int:
-    """Number of K1 launches since import (or the last reset)."""
-    return _LAUNCHES
+def kernel_launch_count(dtype=None) -> int:
+    """Number of K1 launches since import (or the last reset): of the
+    instance for states of `dtype` (torch.float32 or torch.bfloat16), or of
+    both when None."""
+    return sum(_LAUNCHES.values()) if dtype is None else _LAUNCHES[dtype]
 
 
 def reset_kernel_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 class _GroupCall:
@@ -342,12 +355,23 @@ class _GroupCall:
         return d
 
 
-def _check_tensor(x, shape, device, what, kernel="K1"):
+def _state_type(T, kernel="K1") -> int:
+    """KgDesc.state_type of a launch whose state is T."""
+    if T.dtype not in _STATE_TYPES:
+        raise TypeError(f"{kernel} state: dtype {T.dtype}; {kernel} takes "
+                        "float32 or bfloat16 states")
+    return _STATE_TYPES[T.dtype]
+
+
+def _check_tensor(x, shape, device, what, kernel="K1", dtype=torch.float32):
+    """The kernels' input contract. `dtype` is float32 for tables and
+    accumulators and the launch's state dtype for every state tensor, so
+    all state tensors of one launch have one dtype."""
     if x.device != device:
         raise ValueError(f"{kernel} {what}: on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{kernel} {what}: dtype {x.dtype}; {kernel} takes "
-                        "float32")
+    if x.dtype != dtype:
+        raise TypeError(f"{kernel} {what}: dtype {x.dtype}, expected "
+                        f"{dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{kernel} {what}: shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
@@ -358,9 +382,9 @@ def _check_tensor(x, shape, device, what, kernel="K1"):
 
 def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
     """One fused group: K1 on a CUDA tensor, its plain version on a CPU
-    tensor. T [ch, cmp, clp]; seed same shape or None; srcs / srcsh the
-    source groups of the lo|mid / mid|hi cross terms, in `call`'s order."""
-    global _LAUNCHES
+    tensor. T [ch, cmp, clp], float32 or bfloat16; seed same shape and
+    dtype or None; srcs / srcsh the source groups of the lo|mid / mid|hi
+    cross terms, in `call`'s order and T's dtype. Returns T's dtype."""
     if T.device.type == "cpu":
         return kron_group_apply_reference(T, seed, srcs, srcsh, call)
     if T.device.type != "cuda":
@@ -369,16 +393,18 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
     if len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh):
         raise ValueError(f"group {call.gi}: expected {len(call.cross)} + "
                          f"{len(call.crossh)} source groups")
-    _check_tensor(T, call.shape, dev, "state")
+    state_type = _state_type(T)
+    _check_tensor(T, call.shape, dev, "state", dtype=T.dtype)
     if seed is not None:
-        _check_tensor(seed, call.shape, dev, "seed")
+        _check_tensor(seed, call.shape, dev, "seed", dtype=T.dtype)
     for S, shp in zip(srcs, call.cross_shapes):
-        _check_tensor(S, shp, dev, "lo|mid source")
+        _check_tensor(S, shp, dev, "lo|mid source", dtype=T.dtype)
     for S, shp in zip(srcsh, call.crossh_shapes):
-        _check_tensor(S, shp, dev, "mid|hi source")
+        _check_tensor(S, shp, dev, "mid|hi source", dtype=T.dtype)
     if _LIB is None:
         build_kernel()
     d = call.descriptor(dev)
+    d.state_type = state_type
     out = torch.empty_like(T)
     d.out, d.T = out.data_ptr(), T.data_ptr()
     d.seed = None if seed is None else seed.data_ptr()
@@ -392,13 +418,20 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
     if err != 0:
         raise RuntimeError(f"K1 launch failed for group {call.gi}: "
                            f"cudaError {err}")
-    _LAUNCHES += 1
+    _LAUNCHES[T.dtype] += 1
     return out
 
 
 def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall):
     """Plain torch version of K1 (same arguments, same output), in the
-    state's dtype (float32 or float64)."""
+    state's dtype (float32 or float64). bfloat16 inputs are lifted to
+    float32, summed there and rounded once, as the kernel does; the value
+    before that rounding is this function on the lifted inputs."""
+    if T.dtype == torch.bfloat16:
+        return kron_group_apply_reference(
+            _lift(T), None if seed is None else _lift(seed),
+            [_lift(S) for S in srcs], [_lift(S) for S in srcsh],
+            call).to(torch.bfloat16)
     dt = T.dtype
     out = torch.zeros_like(T) if seed is None else seed.clone()
     d = None
@@ -445,12 +478,18 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
     axpy=(s, blocks0): return H psi + s * psi0, with s * psi0 folded into
     each fused group's kernel seed. Kept from the JAX package, where it cut
     the Lanczos recurrence's peak from 4 to ~3 live vectors to fit L=32 on a
-    16 GB chip; on 80 GB it stays for parity."""
+    16 GB chip; on 80 GB it stays for parity.
+
+    bfloat16 leaves come back bfloat16: the seed, the tail and the
+    unsupported entries are computed from the lifted leaves in float32 (the
+    plain apply lifts) and rounded where the JAX package rounds them: each
+    seed once, the axpy fold included, and each tail output once."""
     if top_k is None:
         top_k = default_fused_topk(layout)
     fused = fused_group_set(layout, top_k)
     tail = frozenset(range(len(layout.groups))) - fused
     blocks = list(blocks)
+    sdt = blocks[0].dtype
 
     # tail groups (small): both term halves through the plain apply
     if tail:
@@ -464,8 +503,8 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
         if gi in tail:
             t = tail_out[gi] + hi_tail[gi]
             if axpy is not None:
-                t = t + axpy[0] * axpy[1][gi]
-            outs.append(t)
+                t = t + axpy[0] * _lift(axpy[1][gi])
+            outs.append(t.to(sdt))
             continue
         call = calls[gi]
         # seed per group, so each is freed once its kernel has consumed it
@@ -474,8 +513,10 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
                                     group_filter=(gi,))[gi]
                 if call.has_seed else None)
         if axpy is not None:
-            sg = axpy[0] * axpy[1][gi]
+            sg = axpy[0] * _lift(axpy[1][gi])
             seed = sg if seed is None else seed + sg
+        if seed is not None:
+            seed = seed.to(sdt)
         outs.append(kron_group_apply(
             blocks[gi], seed, [blocks[c[0]] for c in call.cross],
             [blocks[c[0]] for c in call.crossh], call))
@@ -485,17 +526,19 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
     extra_calls = [calls[gi] for gi in sorted(fused) if calls[gi].unsupported]
     if extra_calls:
         extra = _unsupported_terms(blocks, layout, tables, extra_calls)
-        outs = [o if e is None else o + e for o, e in zip(outs, extra)]
+        outs = [o if e is None else (_lift(o) + e).to(sdt)
+                for o, e in zip(outs, extra)]
     return outs
 
 
 def _unsupported_terms(blocks, layout, tables, calls):
     """The cross_meta entries K1 cannot fuse, through the generic
-    contraction path (port of pallas_kron._xla_unsupported)."""
+    contraction path (port of pallas_kron._xla_unsupported). bfloat16
+    blocks are lifted: the result is float32."""
     outs = [None] * len(layout.groups)
     for call in calls:
         for (g_src, pa, pb, a_key, b_key) in call.unsupported:
-            T = blocks[g_src]
+            T = _lift(blocks[g_src])
             runs_a = layout.cross_runs.get(a_key)
             runs_b = layout.cross_runs.get(b_key)
             acc = outs[call.gi]
@@ -507,7 +550,7 @@ def _unsupported_terms(blocks, layout, tables, calls):
                     raise NotImplementedError(
                         f"run-form cross factor on axis {pr} among the "
                         "unsupported fused entries")
-                base = torch.zeros_like(blocks[call.gi])
+                base = torch.zeros_like(blocks[call.gi], dtype=T.dtype)
                 for (r0, c0, ln, val) in runs:
                     X = _contract(T[:, r0:r0 + ln], M, pm)
                     if val != 1.0:
@@ -565,7 +608,9 @@ class KronHamiltonian(nn.Module):
     plain blocks apply), `top_k` and `fuse_crossh` are fields, not
     environment reads. `device` defaults to the card (pass device="cpu" for
     a CPU module). forward(bv, s=None, bv0=None) returns H bv (+ s bv0: the
-    Lanczos axpy, folded into the kernel seed when fused)."""
+    Lanczos axpy, folded into the kernel seed when fused), in bv's dtype:
+    a float32 module also takes bfloat16 states (float32 sums, one rounding
+    per output; K1's bfloat16 instance when fused)."""
 
     def __init__(self, layout: SectorKronLayout, dtype=torch.float32,
                  device=None, fused: bool = True, top_k: int | None = None,
@@ -629,5 +674,5 @@ class KronHamiltonian(nn.Module):
                 axpy=axpy))
         out = apply_H_sector_kron(bv.leaves, None, self.layout, tables)
         if s is not None:
-            out = [o + s * x for o, x in zip(out, bv0.leaves)]
-        return BlockVec(out)
+            out = [o + s * _lift(x) for o, x in zip(out, bv0.leaves)]
+        return BlockVec([o.to(bv.dtype) for o in out])

@@ -512,9 +512,19 @@ def _default_tables(layout, dtype, device):
     return cache[key]
 
 
+def _lift(x):
+    """bfloat16 -> float32, anything else as it is. bfloat16 is a storage
+    type of states only: every sum over amplitudes is taken in float32 (a
+    bfloat16 matmul may reduce in bfloat16 on the card and rounds after each
+    chained contraction)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _contract(T, M, part):
     """Contract the `part` axis of group tensor T [h, m, l] with M[src, dst]
-    (einsum "hml,ln->hmn" | "hml,mn->hnl" | "hml,hn->nml")."""
+    (einsum "hml,ln->hmn" | "hml,mn->hnl" | "hml,hn->nml"). A bfloat16 T is
+    lifted: the result is float32."""
+    T = _lift(T)
     M = M.to(T.dtype)
     if part == 0:
         return torch.matmul(T, M)
@@ -548,7 +558,11 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
     plus "crossl" (lo|mid bonds, hi-axis untouched) and "crossh" (terms that
     touch the hi axis). `group_filter`: iterable of group indices to compute;
     the other groups come back as None (the JAX package returns zero leaves
-    that XLA prunes; eager torch would allocate them)."""
+    that XLA prunes; eager torch would allocate them).
+
+    bfloat16 leaves are lifted group by group as they are read and the
+    outputs are FLOAT32 (the JAX apply promotes against its float32 tables
+    the same way): the caller rounds, once, where it stores."""
     if not isinstance(psi, (list, tuple)):
         raise TypeError("apply_H_sector_kron takes a list of per-group "
                         "tensors (blocks mode); use flat_to_blocks")
@@ -560,7 +574,8 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
     want_crossl = "cross" in want or "crossl" in want
     want_crossh = "cross" in want or "crossh" in want
     G = list(psi)
-    rdtype = G[0].dtype
+    rdtype = (torch.float32 if G[0].dtype == torch.bfloat16
+              else G[0].dtype)
     dev = (tables if tables is not None
            else _default_tables(layout, rdtype, G[0].device))
 
@@ -570,7 +585,7 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
         if gset is not None and gi not in gset:
             outs.append(None)
             continue
-        T = G[gi]
+        T = _lift(G[gi])
         kp = (k_l, k_m, k_h)
         acc = None
         if "diag" in want:
@@ -604,7 +619,7 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
                 continue
             runs_a = layout.cross_runs.get(a_key)
             runs_b = layout.cross_runs.get(b_key)
-            S = G[g_src]
+            S = _lift(G[g_src])
             if runs_a is not None and runs_b is not None:
                 # both factors are block shifts on the mid/hi dims: slice adds
                 for (ra0, ca0, lna, va) in runs_a:

@@ -84,12 +84,15 @@ def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
     them once keeps them exactly zero). The numbers are drawn on the
     generator's device, then moved to `device` (default: the card, as for
     every state constructor, since a state decides where a solver runs; pass
-    device="cpu" for a CPU state)."""
+    device="cpu" for a CPU state). bfloat16 leaves are float32 draws,
+    rounded."""
     device = resolve_device(device)
+    draw = torch.float32 if dtype == torch.bfloat16 else dtype
     leaves = []
     for (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in layout.groups:
-        x = torch.randn((ch, cmp, clp), generator=generator, dtype=dtype,
-                        device=generator.device).to(device)
+        x = torch.randn((ch, cmp, clp), generator=generator, dtype=draw,
+                        device=generator.device).to(device=device,
+                                                    dtype=dtype)
         if cmp != cm or clp != cl:
             x[:, cm:, :] = 0
             x[:, :, cl:] = 0

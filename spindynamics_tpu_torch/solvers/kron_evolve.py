@@ -11,10 +11,14 @@ Krylov and imaginary-time variants keep the JAX package's recurrences;
 `lax.scan` is a Python loop and the small tridiagonal problems are solved
 on the host in float64.
 
-States are float32 (the accumulator is float32 as in the JAX package) or,
-off the kernels, float64. Sharded (`mesh=`) runs wait for the multi-GPU
-slice (ROADMAP Queue 1, item 13); bfloat16 states wait for the bf16
-variants of K1 and K2 (ROADMAP Queue 2).
+States are float32 (the accumulator is float32 as in the JAX package),
+bfloat16 or, off the kernels, float64. A bfloat16 state halves the memory
+of every stored recurrence term: the terms are stored bfloat16 through the
+bfloat16 instances of K1 and K2, every combine and the accumulator stay
+float32, and the accumulator is rounded once per step. Accuracy class: one
+rounding of the state per stored term, so observables are good to about
+1e-2 absolute over tens of steps. Sharded (`mesh=`) runs wait for the
+multi-GPU slice (ROADMAP Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.kron_group import KronHamiltonian
-from ..ops.sector_kron import SectorKronLayout, default_fused_topk
+from ..ops.sector_kron import SectorKronLayout, _lift, default_fused_topk
 from ..utils.compensated import vdot2
 from ..utils.device import resolve_device
 from .blockvec import BlockVec, bv_basis_state, bv_random, bv_zeros_like
@@ -57,13 +61,9 @@ def _no_mesh(mesh):
 
 
 def _check_state_dtype(dtype):
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 states need the bf16 variants of K1 and K2, not "
-            "ported yet (ROADMAP Queue 2)")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"state dtype must be float32 or float64, got "
-                         f"{dtype}")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"state dtype must be float32, bfloat16 or "
+                         f"float64, got {dtype}")
 
 
 class KronPlanes(nn.Module):
@@ -73,7 +73,8 @@ class KronPlanes(nn.Module):
     KronHamiltonian's (`H.fused`: K1), and `cheb_fused` (default H.fused)
     sends every Chebyshev term k >= 2 through K2 for the `cheb_top_k`
     largest groups (default: every group of at least 2^15 elements, the
-    JAX package's term-kernel cutoff; the rest run plain)."""
+    JAX package's term-kernel cutoff; the rest run plain). The state dtype
+    is the leaves': a float32 module evolves float32 and bfloat16 pairs."""
 
     def __init__(self, H: KronHamiltonian, cheb_fused: bool | None = None,
                  cheb_top_k: int | None = None):
@@ -176,21 +177,27 @@ def _acc_add_(acc, x, c):
     """acc += c x for the (re, im) pairs, in place, leaf by leaf, in the
     JAX package's order: acc_re + c_r x_re - c_i x_im and
     acc_im + c_i x_re + c_r x_im. Leaf by leaf, the temporaries are one
-    group large, not one state."""
+    group large, not one state; bfloat16 x leaves are lifted there, so the
+    float32 accumulator never sees a rounded product."""
     cr, ci = c
     for ar, ai, xr, xi in zip(acc[0].leaves, acc[1].leaves, x[0].leaves,
                               x[1].leaves):
+        xr, xi = _lift(xr), _lift(xi)
         ar.add_(xr * cr).sub_(xi * ci)
         ai.add_(xr * ci).add_(xi * cr)
 
 
 def _plain_term(planes, p_prev, p_curr, acc, c, ab):
     """One term k >= 2 of the plain recurrence (kron_evolve.py:190-200):
-    returns p_next; acc is updated in place."""
+    returns p_next; acc is updated in place. Combines run in float32 on
+    lifted leaves and store in the state dtype where the JAX scan does
+    (the shifted apply, then p_next): identities for float32 states."""
     a_inv, b = ab
+    sdt = p_curr[0].dtype
     nr, ni = planes(p_curr)
     p_next = tuple(
-        BlockVec([((h - b * x) * a_inv) * 2.0 - pv
+        BlockVec([(_lift(((_lift(h) - b * _lift(x)) * a_inv).to(sdt)) * 2.0
+                   - _lift(pv)).to(sdt)
                   for h, x, pv in zip(H.leaves, P.leaves, V.leaves)])
         for H, P, V in ((nr, p_curr[0], p_prev[0]),
                         (ni, p_curr[1], p_prev[1])))
@@ -207,29 +214,34 @@ def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
     (float32 values). Terms 0 and 1 apply H through the planes module (K1);
     terms k >= 2 run through K2 when `planes.cheb_fused`, else through the
     plain recurrence. The accumulator is float32 and the result is cast to
-    the state dtype."""
+    the state dtype.
+
+    The pair may be bfloat16: every term is stored in the state dtype (the
+    bfloat16 instances of K1 and K2 when fused), every combine and the
+    accumulator run in float32 on leaves lifted one group at a time (no
+    state-sized float32 copy of a bfloat16 pair is ever held), and the
+    accumulator is rounded once, at the end of the step. For float32 and
+    float64 states every lift and cast is an identity."""
     a_inv, b = ab
     sdt = pair[0].dtype
     c = [(float(r), float(i)) for r, i in np.asarray(coeffs_ri, np.float32)]
 
     def mvr(p):
         hr, hi = planes(p)
-        return tuple(BlockVec([(h - b * x) * a_inv
+        return tuple(BlockVec([((_lift(h) - b * _lift(x)) * a_inv).to(sdt)
                                for h, x in zip(H.leaves, P.leaves)])
                      for H, P in ((hr, p[0]), (hi, p[1])))
 
-    def lift(p):
-        return p[0].astype(torch.float32), p[1].astype(torch.float32)
+    def f32(x):
+        return x.to(torch.float32)
 
     phi_prev = pair
     c0r, c0i = c[0]
-    pr, pi = lift(phi_prev)
-    acc = (BlockVec([r * c0r - i * c0i
-                     for r, i in zip(pr.leaves, pi.leaves)]),
-           BlockVec([r * c0i + i * c0r
-                     for r, i in zip(pr.leaves, pi.leaves)]))
+    pr, pi = phi_prev[0].leaves, phi_prev[1].leaves
+    acc = (BlockVec([f32(r) * c0r - f32(i) * c0i for r, i in zip(pr, pi)]),
+           BlockVec([f32(r) * c0i + f32(i) * c0r for r, i in zip(pr, pi)]))
     phi_curr = mvr(phi_prev)
-    _acc_add_(acc, lift(phi_curr), c[1])
+    _acc_add_(acc, phi_curr, c[1])
     if n > 2:
         if planes.cheb_fused:
             from ..ops.cheb_term import cheb_scan_terms_fused
@@ -414,16 +426,18 @@ def kron_energy_bounds(layout: SectorKronLayout, planes_or_mv,
 
 
 def _planes_for(layout, fused, dtype, device):
-    """The planes module of an entry point. A fused run needs float32
-    states (K1 and K2): in another dtype it raises on CUDA and runs the
-    plain apply on the CPU, as runners.groundstate_kron does."""
-    if fused and dtype != torch.float32:
+    """The planes module of an entry point for states of `dtype`. A fused
+    run needs float32 or bfloat16 states (K1 and K2): in float64 it raises
+    on CUDA and runs the plain apply on the CPU, as runners.groundstate_kron
+    does. The module's tables are float32 for bfloat16 states."""
+    if fused and dtype not in (torch.float32, torch.bfloat16):
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1 and K2, which take "
-                             f"float32 states, not {dtype}: pass "
-                             "fused=False or float32 states")
+                             f"float32 or bfloat16 states, not {dtype}: "
+                             "pass fused=False or float32 states")
         fused = False
-    return kron_planes_matvec_fn(layout, fused=fused, dtype=dtype,
+    tdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    return kron_planes_matvec_fn(layout, fused=fused, dtype=tdt,
                                  device=device)
 
 
@@ -447,12 +461,18 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
 
     psi0: an int bitstring, a real BlockVec or an (re, im) pair. The state
     dtype defaults to float32 (as the JAX package resolves a float64 model);
+    `state_dtype=torch.bfloat16` stores every recurrence term and the
+    returned pair in bfloat16 (half the memory of the stored terms; float32
+    combines and accumulator; observables good to about 1e-2, the norm
+    drift in the same class: state it per use).
     `device` defaults to psi0's, else the card. Bounds come from a
-    bounds_m-step Lanczos run (kron_energy_bounds, `generator` or seed 7)
-    unless `Ebounds` is given. `observe(pair, layout)` defaults to
-    magnetization_per_site_kron. Returns (pair, obs [n_steps, ...] numpy,
-    info): info has the bounds, the norm after every step (Chebyshev is not
-    unitary at finite cheb_n), the norm drift, the bounds-solve seconds and
+    bounds_m-step Lanczos run (kron_energy_bounds, `generator` or seed 7;
+    always on a float32 vector, padded by 0.05 instead of 0.02 for a
+    bfloat16 run) unless `Ebounds` is given. `observe(pair, layout)`
+    defaults to magnetization_per_site_kron. Returns (pair, obs
+    [n_steps, ...] numpy, info): info has the bounds, the norm after every
+    step (Chebyshev is not unitary at finite cheb_n), the norm drift, the
+    bounds-solve seconds and
     the host seconds of every step (each ends in reading the observable, a
     device sync)."""
     from ..observables_kron import magnetization_per_site_kron
@@ -476,8 +496,11 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
                                for l in p.leaves]) for p in psi0)
     t0 = time.perf_counter()
     if Ebounds is None:
-        Ebounds = kron_energy_bounds(lay, planes, bounds_m=bounds_m,
-                                     generator=generator)
+        # a bfloat16 recurrence sees a slightly perturbed H: pad the
+        # interval harder so nothing maps outside [-1, 1]
+        Ebounds = kron_energy_bounds(
+            lay, planes, bounds_m=bounds_m, generator=generator,
+            safety=0.05 if sdt == torch.bfloat16 else 0.02)
     bounds_s = time.perf_counter() - t0
     c_ri, ab = _coeff_arrays(chebyshev_coefficients(dt, Ebounds[0],
                                                     Ebounds[1], cheb_n))

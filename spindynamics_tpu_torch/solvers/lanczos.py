@@ -51,10 +51,14 @@ class LanczosFactorization(NamedTuple):
 
 
 def _inner_c(x, y, compensated: bool):
-    """Sesquilinear <x|y>, leaf by leaf for BlockVec states."""
+    """Sesquilinear <x|y>, leaf by leaf for BlockVec states. bfloat16
+    leaves are read as float32: neither a Dekker split nor an N-term sum
+    works at 8 mantissa bits."""
     if isinstance(x, BlockVec):
         return sum(_inner_c(a, b, compensated)
                    for a, b in zip(x.leaves, y.leaves))
+    if x.dtype == torch.bfloat16 or y.dtype == torch.bfloat16:
+        x, y = x.float(), y.float()
     if compensated:
         from ..utils.compensated import vdot2
 

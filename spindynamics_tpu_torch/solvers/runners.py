@@ -1,10 +1,16 @@
-"""Ground state and KPM S(q, omega) entry points on the sector_kron layout
-(port of the kron parts of spindynamics_tpu/solvers/runners.py).
+"""Ground state, S(q, omega) and dynamical-correlation entry points on the
+sector_kron layout (port of the unsharded kron parts of
+spindynamics_tpu/solvers/runners.py), and the flat runners.
 
 groundstate_kron: restarted two-pass Lanczos (+ Chebyshev-filter polish) on
 BlockVec states, every H apply through KronHamiltonian (K1 on CUDA when
 fused; float32 only). kpm_sqw_kron: Chebyshev moments of S^z_q|psi0> held as
-two real planes, through the same apply.
+two real planes, through the same apply. lanczos_sqw_kron: the second
+spectral path, a basis-free Lanczos tridiagonalization of the same plane
+pair. kpm_correlation_matrix_kron: |S_{Sz_i Sz_j}(omega)| for all site
+pairs, one Chebyshev recurrence per B site with the moments against every
+A site from one marginal pass. The sharded forms (`mesh=`) wait for the
+multi-GPU slice (ROADMAP Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -19,8 +25,35 @@ from ..utils.device import resolve_device
 from ..utils.dtypes import complex_dtype
 from .blockvec import BlockVec, bv_random
 
-__all__ = ["groundstate_kron", "kpm_sqw_kron", "run_chebyshev",
-           "run_krylov", "evolve_trajectory"]
+__all__ = ["groundstate_kron", "kpm_sqw_kron", "lanczos_sqw_kron",
+           "kpm_correlation_matrix_kron", "run_chebyshev", "run_krylov",
+           "evolve_trajectory"]
+
+
+def _kron_matvec_for(lay, fused: bool, dtype, device, mesh=None
+                     ) -> KronHamiltonian:
+    """The H apply of a kron runner on BlockVec states of `dtype`:
+    KronHamiltonian with K1 (`fused`) or the plain blocks apply. K1 takes
+    float32 (and bfloat16) states only: on the CPU a `fused` solve in
+    float64 runs the plain blocks apply, as in the JAX package; on CUDA it
+    raises. The sharded apply (`mesh`) is not ported."""
+    from .kron_evolve import _no_mesh
+
+    _no_mesh(mesh)
+    if fused and dtype != torch.float32:
+        if device.type == "cuda":
+            raise ValueError(f"fused=True runs K1, which takes float32 "
+                             f"states, not {dtype}: pass fused=False or "
+                             "dtype=torch.float32")
+        fused = False
+    return KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
+
+
+def _state_dtype_of(model):
+    """The state dtype of the spectral kron runners: a float64 model keeps
+    float64 states (validation runs); everything else runs float32."""
+    return (model.dtype if model.dtype in (torch.float32, torch.float64)
+            else torch.float32)
 
 
 def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
@@ -42,14 +75,8 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
     if dtype is None:
         dtype = model.dtype
     device = resolve_device(device, v0)
-    if fused and dtype != torch.float32:
-        if device.type == "cuda":
-            raise ValueError(f"fused=True runs K1, which takes float32 "
-                             f"states, not {dtype}: pass fused=False or "
-                             "dtype=torch.float32")
-        fused = False
     lay = make_sector_kron_layout(model, model.kron_splits, model.kron_pads)
-    mv = KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
+    mv = _kron_matvec_for(lay, fused, dtype, device)
     if v0 is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -201,6 +228,200 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
                                density_2_over_a=False).numpy()
     info.update(E0=float(E0), bounds=(lo - pad, hi + pad), a=a, b=b)
     return S, info
+
+
+def lanczos_sqw_kron(model, q_list, omega, lanc_m: int = 100,
+                     eta: float = 0.05, broaden: str = "lorentz",
+                     gs_lanc_m: int = 40, cycles: int = 6,
+                     target_residual: float | None = 1e-3,
+                     generator: torch.Generator | None = None,
+                     fused: bool = True, psi0: BlockVec | None = None,
+                     E0=None, info=None, tol: float = 1e-12, mesh=None,
+                     plane_mode: str = "pair", device=None):
+    """T=0 dynamic structure factor S(q, omega) via Lanczos at kron BlockVec
+    scale: the second spectral path at this layout (kpm_sqw_kron is the KPM
+    one; ref src/LanczosSqw.jl:49-76).
+
+    Ground state via groundstate_kron (unless psi0 and E0 are given), then
+    per q: phi_q = S^z_q|psi0> as an (re, im) pair of REAL planes, a
+    basis-free Lanczos tridiagonalization of H from that pair through the
+    same apply (kron_evolve.lanczos_tridiag_pair), and pole broadening on
+    the host with weights |Q[0, :]|^2 ||phi||^2 at omega = theta - E0.
+    The q-points run serially, so peak memory does not grow with
+    len(q_list): the ground state plus the pair recurrence, which in eager
+    torch holds about a dozen state-sized vectors at its peak (three plane
+    pairs and the temporaries of the three-term update).
+
+    plane_mode: "pair" (the default on every device: the reference's
+    complex recurrence on the plane pair) or "split" (S_phi = S_re + S_im,
+    exact for real H and real psi0, from two independent real-plane
+    tridiagonalizations; the same number of applies, another finite-m
+    estimator). A phi of zero norm (q = 0 at Sz = 0) gives a zero row; the
+    guard runs before any division. A float64 model keeps float64 states;
+    everything else runs float32. `device` defaults to psi0's, else the
+    card. Returns (S [nq, n_omega] numpy, info with E0 and plane_mode)."""
+    from ..observables_kron import bv_sz_q_weights
+    from .kron_evolve import lanczos_tridiag_pair
+    from .lanczos import lanczos_iteration
+    from .lanczos_sqw import spectral_from_tridiagonal_batched
+
+    if plane_mode not in ("pair", "split"):
+        raise ValueError(f"unknown plane_mode {plane_mode!r}")
+    device = resolve_device(device, psi0)
+    rdt = _state_dtype_of(model)
+    if psi0 is None or E0 is None:
+        E0, psi0, info, lay = groundstate_kron(
+            model, lanc_m=gs_lanc_m, cycles=cycles,
+            target_residual=target_residual, generator=generator,
+            fused=fused, device=device)
+    else:
+        lay = make_sector_kron_layout(model, model.kron_splits,
+                                      model.kron_pads)
+    info = dict(info or {})
+    mv = _kron_matvec_for(lay, fused, rdt, device, mesh)
+
+    def pmv(pair):
+        return mv(pair[0]), mv(pair[1])
+
+    psi0 = BlockVec([l.to(device=device, dtype=rdt) for l in psi0.leaves])
+    hi_lens = [l.shape[0] for l in psi0.leaves]
+    wdt = np.float64 if rdt == torch.float64 else np.float32
+
+    # (q index, alphas, betas, norm) per tridiagonalization; the spectra
+    # of one q add up
+    entries = []
+    for iq, q in enumerate(q_list):
+        phi_r, phi_i, n2r, n2i = _phi_planes(
+            psi0.leaves, bv_sz_q_weights(lay, float(q), hi_lens, dtype=wdt))
+        n2r, n2i = float(n2r), float(n2i)
+        if n2r + n2i <= 0.0:
+            continue  # zero row
+        if plane_mode == "pair":
+            al, be, nrm = lanczos_tridiag_pair(
+                pmv, (BlockVec(phi_r), BlockVec(phi_i)), lanc_m=lanc_m,
+                tol=tol)
+            entries.append((iq, al.numpy(), be.numpy(), float(nrm)))
+            continue
+        for leaves, n2 in ((phi_r, n2r), (phi_i, n2i)):
+            if n2 <= 1e-12 * (n2r + n2i):
+                continue  # e.g. the sin plane at q = pi
+            fac = lanczos_iteration(mv, BlockVec(leaves), lanc_m, tol=tol)
+            entries.append((iq, fac.alphas.numpy(),
+                            fac.betas.numpy()[: lanc_m - 1],
+                            float(fac.v0_norm)))
+    S = np.zeros((len(q_list), len(np.atleast_1d(omega))))
+    if entries:
+        rows = spectral_from_tridiagonal_batched(
+            np.stack([e[1] for e in entries]),
+            np.stack([e[2] for e in entries]),
+            np.asarray([e[3] for e in entries]),
+            float(E0), omega, eta=eta, broaden=broaden)
+        for (iq, *_rest), row in zip(entries, rows):
+            S[iq] += row
+    info.update(E0=float(E0), plane_mode=plane_mode)
+    return S, info
+
+
+def kpm_correlation_matrix_kron(model, omega, n: int = 300,
+                                lanc_m: int = 40, cycles: int = 6,
+                                target_residual: float | None = 1e-3,
+                                kernel: str = "jackson",
+                                generator: torch.Generator | None = None,
+                                bounds_m: int = 40, fused: bool = True,
+                                psi0: BlockVec | None = None, E0=None,
+                                info=None, safety: float = 0.01, a=None,
+                                b=None, mesh=None, sites=None, device=None):
+    """C[i, j, omega] = |S_{Sz_i Sz_j}(omega)| for all site pairs at kron
+    BlockVec scale (flat version: solvers/kpm.kpm_correlation_matrix; ref
+    src/TimeEvolution/KPM.jl:214-235, 72-116).
+
+    Per B site j, one after another: phi_j = Sz_j|psi0> normalized, the
+    Chebyshev recurrence v_n = T_n(H~)|phi_j> through the same apply as the
+    ground state, and per step the moments against ALL A sites in one pass
+    over the state (observables_kron.bv_site_moments on psi0 * v_n: Sz_i is
+    diagonal, so mu_n[i] = <psi0|Sz_i|v_n> is a weighted-Sz sum). Each
+    v_{n+1} is written over v_{n-1}'s storage, so the recurrence holds
+    psi0 plus three BlockVecs (and the temporaries of one rescaled apply)
+    whatever L. The reference's second KPM convention: no
+    doubling of the n >= 1 terms, the 2/a density, abs; the flat path uses
+    the same, so the two agree.
+
+    `sites` restricts the B loop (C is then [L, len(sites), W]); (a, b)
+    given skip the bounds Lanczos (start: seed 7 on `device`). A float64
+    model keeps float64 states. `device` defaults to psi0's, else the card.
+    Returns (C [L, n_sites, n_omega] numpy, info)."""
+    from ..observables_kron import bv_apply_sz, bv_site_moments
+    from .chebyshev import kpm_reconstruct
+    from .lanczos import lanczos_iteration, tridiag_eigh
+
+    device = resolve_device(device, psi0)
+    rdt = _state_dtype_of(model)
+    if psi0 is None or E0 is None:
+        E0, psi0, info, lay = groundstate_kron(
+            model, lanc_m=lanc_m, cycles=cycles,
+            target_residual=target_residual, generator=generator,
+            fused=fused, device=device)
+    else:
+        lay = make_sector_kron_layout(model, model.kron_splits,
+                                      model.kron_pads)
+    info = dict(info or {})
+    mv = _kron_matvec_for(lay, fused, rdt, device, mesh)
+    psi0 = BlockVec([l.to(device=device, dtype=rdt) for l in psi0.leaves])
+
+    if a is None or b is None:
+        g7 = torch.Generator(device=device).manual_seed(7)
+        fac = lanczos_iteration(mv, bv_random(lay, g7, rdt, device), bounds_m)
+        evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+        lo, hi = float(evals.min()), float(evals.max())
+        if E0 is not None:
+            lo = min(lo, float(E0))
+        pad = safety * 0.5 * (hi - lo) + 1e-6
+        a = (hi - lo + 2 * pad) / 2.0
+        b = (hi + lo) / 2.0
+        info.update(bounds=(lo - pad, hi + pad))
+    a_inv = torch.tensor(1.0 / a, dtype=rdt, device=device)
+    bb = torch.tensor(b, dtype=rdt, device=device)
+
+    def mvr(bv):
+        return (mv(bv) - bv * bb) * a_inv
+
+    def mu(v):
+        return bv_site_moments(
+            [p * x for p, x in zip(psi0.leaves, v.leaves)], lay)
+
+    def moments_all_A(phi):
+        """[n, L] moments of one B state against all A sites."""
+        v_prev, v_curr = phi, mvr(phi)
+        mus = [mu(v_prev), mu(v_curr)]
+        for _ in range(n - 2):
+            w = mvr(v_curr)
+            # v_next = 2 w - v_prev, over v_prev's storage
+            for x, y in zip(v_prev.leaves, w.leaves):
+                x.neg_().add_(y, alpha=2.0)
+            v_prev, v_curr = v_curr, v_prev
+            mus.append(mu(v_curr))
+        return torch.stack(mus[:n])
+
+    if sites is None:
+        sites = range(model.L)
+    mu_rows = []
+    for j in sites:
+        phi = bv_apply_sz(psi0, lay, int(j))
+        n2 = float(sum(torch.dot(x.reshape(-1), x.reshape(-1))
+                       for x in phi.leaves))
+        if n2 <= 0.0:
+            mu_rows.append(np.zeros((n, model.L), np.float64))
+            continue
+        nrm = np.sqrt(n2)
+        phi = phi * torch.tensor(1.0 / nrm, dtype=rdt, device=device)
+        mu_rows.append(moments_all_A(phi).double().cpu().numpy() * nrm)
+    mu_all = torch.as_tensor(np.stack(mu_rows).transpose(0, 2, 1))  # [B, A, n]
+    S = kpm_reconstruct(mu_all, np.asarray(omega, np.float64), a, b,
+                        kernel=kernel, doubling=False, density_2_over_a=True,
+                        clamp=None, clip_nonneg=True)
+    C = np.abs(S.transpose(0, 1).numpy())  # [i = A, j = B, W]
+    info.update(E0=None if E0 is None else float(E0), a=float(a), b=float(b))
+    return C, info
 
 
 # ---------------------------------------------------------------------------

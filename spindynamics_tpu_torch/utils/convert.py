@@ -48,24 +48,45 @@ model_from_jax_arrays = model_from_numpy
 
 def blockvec_from_numpy(leaves, device,
                         dtype: torch.dtype = torch.float32) -> BlockVec:
-    """BlockVec from a list of per-group numpy arrays [C_h, C_m_pad, C_l_pad]."""
-    return BlockVec([torch.tensor(np.asarray(l), dtype=dtype, device=device)
-                     for l in leaves])
+    """BlockVec from a list of per-group numpy arrays [C_h, C_m_pad,
+    C_l_pad]. dtype=torch.bfloat16 rounds float32 values to nearest even
+    (numpy has no bfloat16; `_tensor` says how)."""
+    return BlockVec([_tensor(l, dtype, device) for l in leaves])
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    """numpy -> torch (copied). numpy has no bfloat16, so a bfloat16 tensor
+    is made from the array as float32 and rounded on the torch side, to
+    nearest even: the float32 -> bfloat16 `astype` of the JAX package."""
+    x = np.asarray(x)
+    if dtype == torch.bfloat16:
+        return torch.tensor(x, dtype=torch.float32,
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """torch -> numpy on the host; bfloat16 comes back as float32 (exact)."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def blockvec_to_numpy(bv: BlockVec) -> list:
-    """List of per-group numpy arrays (copied to the host)."""
-    return [l.detach().cpu().numpy() for l in bv.leaves]
+    """List of per-group numpy arrays (copied to the host); bfloat16 leaves
+    as float32."""
+    return [_numpy(l) for l in bv.leaves]
 
 
 def state_from_numpy(psi, device, dtype: torch.dtype | None = None
                      ) -> torch.Tensor:
     """Flat state tensor on `device` from a numpy array, real or complex
-    (copied); dtype defaults to the array's. The device is required, as
-    for blockvec_from_numpy: the state decides where a solver runs."""
-    return torch.tensor(np.asarray(psi), dtype=dtype, device=device)
+    (copied); dtype defaults to the array's, and may be torch.bfloat16 for
+    a real array (float32 values rounded to nearest even). The device is
+    required, as for blockvec_from_numpy: the state decides where a solver
+    runs."""
+    return _tensor(psi, dtype, device)
 
 
 def state_to_numpy(psi: torch.Tensor) -> np.ndarray:
-    """Numpy copy of a flat state, on the host."""
-    return psi.detach().cpu().numpy()
+    """Numpy copy of a flat state, on the host (bfloat16 as float32)."""
+    return _numpy(psi)

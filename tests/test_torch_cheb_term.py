@@ -25,7 +25,7 @@ from spindynamics_tpu_torch.ops import kron_group as kg
 from spindynamics_tpu_torch.ops import sector_kron as tsk
 from spindynamics_tpu_torch.solvers import kron_evolve as tke
 
-from test_torch_kron_group import _emulate_k1
+from test_torch_kron_group import _emulate_k1, _round_bf16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,13 +131,15 @@ def test_k2_route_long_range_unsupported_seeds(monkeypatch):
 _ARGS = ("T", "prev", "acc", "seed", "srcs", "srcsh", "call")
 
 
-def _group_args(lt, seed=11):
+def _group_args(lt, seed=11, sdt=torch.float32):
     """Per K2-fused group, the main path's launch arguments
-    (cheb_term.term_launches) from numpy-made curr, prev and acc pairs."""
+    (cheb_term.term_launches) from numpy-made curr, prev and acc pairs:
+    curr and prev in the state dtype `sdt`, acc float32."""
     H = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32)
     curr, prev, acc = (tuple(pt.BlockVec([torch.tensor(x, dtype=torch.float32)
-                                          for x in q])
-                             for q in _pair(lt, seed + i)) for i in range(3))
+                                          for x in q]).astype(dt)
+                             for q in _pair(lt, seed + i))
+                       for i, dt in enumerate((sdt, sdt, torch.float32)))
     fused = kg.fused_group_set(lt, tsk.default_fused_topk(lt, 1 << 15))
     return [dict(zip(_ARGS, args)) for _, args in ct.term_launches(
         lt, H.tables, H.calls, fused, prev, curr, acc)]
@@ -148,14 +150,24 @@ def _emulate_k2(d):
     tiles, segment masks and hi-local sum (the K1 emulation, driven once
     per plane by a K1 descriptor holding that plane's pointers, exactly the
     pointers the kernel reads for it), then the epilogue per element with
-    the descriptor's float32 scalars. Returns (next_re, next_im, acc_re,
+    the descriptor's float32 scalars. States are read in the descriptor's
+    state type and acc as float32; a bfloat16 launch rounds next once and
+    updates acc from the unrounded x. Returns (next_re, next_im, acc_re,
     acc_im) without touching the inputs."""
     ch, cmp, clp = d.re.ch, d.re.cmp, d.re.clp
     n = ch * cmp * clp
+    bf16 = d.re.state_type == 1
 
-    def arr(ptr):
+    def acc_arr(ptr):
         return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)
                                      ).astype(np.float64).reshape(ch, cmp, clp)
+
+    def arr(ptr):
+        if not bf16:
+            return acc_arr(ptr)
+        u = np.ctypeslib.as_array((ctypes.c_uint16 * n).from_address(ptr))
+        return (u.astype(np.uint32) << 16).view(np.float32).astype(
+            np.float64).reshape(ch, cmp, clp)
 
     d_im = kg._KgDesc.from_buffer_copy(d.re)
     d_im.T, d_im.seed = d.T_im, d.seed_im
@@ -163,14 +175,35 @@ def _emulate_k2(d):
         d_im.cross[i].src = d.cross_src_im[i]
     for i in range(d.re.n_crossh):
         d_im.crossh[i].src = d.crossh_src_im[i]
-    h_re, h_im = _emulate_k1(d.re), _emulate_k1(d_im)
+    h_re, h_im = (_emulate_k1(d.re, store=False),
+                  _emulate_k1(d_im, store=False))
     f = np.float32
     two_ai, b, c_r, c_i = f(2.0) * f(d.a_inv), f(d.b), f(d.c_r), f(d.c_i)
     xr = (h_re - b * arr(d.re.T)) * two_ai - arr(d.prev_re)
     xi = (h_im - b * arr(d.T_im)) * two_ai - arr(d.prev_im)
-    ar = arr(d.acc_re) + c_r * xr - c_i * xi
-    ai = arr(d.acc_im) + c_i * xr + c_r * xi
+    ar = acc_arr(d.acc_re) + c_r * xr - c_i * xi
+    ai = acc_arr(d.acc_im) + c_i * xr + c_r * xi
+    if bf16:
+        xr, xi = _round_bf16(xr), _round_bf16(xi)
     return xr, xi, ar, ai
+
+
+def _k2_descriptor(g, seed, scal):
+    """The group's descriptor as cheb_term_apply fills it for a launch (but
+    for the outputs), over the CPU tensors of `g` (_group_args)."""
+    d = ct.term_descriptor(g["call"], torch.device("cpu"))
+    d.re.state_type = kg._state_type(g["T"][0])
+    d.re.T, d.T_im = g["T"][0].data_ptr(), g["T"][1].data_ptr()
+    d.re.seed, d.seed_im = ((None, None) if seed is None else
+                            (seed[0].data_ptr(), seed[1].data_ptr()))
+    d.prev_re, d.prev_im = g["prev"][0].data_ptr(), g["prev"][1].data_ptr()
+    d.acc_re, d.acc_im = g["acc"][0].data_ptr(), g["acc"][1].data_ptr()
+    for i, (sr, si) in enumerate(g["srcs"]):
+        d.re.cross[i].src, d.cross_src_im[i] = sr.data_ptr(), si.data_ptr()
+    for i, (sr, si) in enumerate(g["srcsh"]):
+        d.re.crossh[i].src, d.crossh_src_im[i] = sr.data_ptr(), si.data_ptr()
+    d.a_inv, d.b, d.c_r, d.c_i = scal
+    return d
 
 
 @pytest.mark.parametrize("L,splits,long_range", [
@@ -191,22 +224,7 @@ def test_k2_emulation_matches_reference(L, splits, long_range):
             want = ct.cheb_term_apply_reference(g["T"], g["prev"], acc, seed,
                                                 g["srcs"], g["srcsh"], call,
                                                 scal)
-            d = ct.term_descriptor(call, torch.device("cpu"))
-            d.re.T, d.T_im = g["T"][0].data_ptr(), g["T"][1].data_ptr()
-            d.re.seed, d.seed_im = ((None, None) if seed is None else
-                                    (seed[0].data_ptr(), seed[1].data_ptr()))
-            d.prev_re, d.prev_im = (g["prev"][0].data_ptr(),
-                                    g["prev"][1].data_ptr())
-            d.acc_re, d.acc_im = (g["acc"][0].data_ptr(),
-                                  g["acc"][1].data_ptr())
-            for i, (sr, si) in enumerate(g["srcs"]):
-                d.re.cross[i].src, d.cross_src_im[i] = (sr.data_ptr(),
-                                                        si.data_ptr())
-            for i, (sr, si) in enumerate(g["srcsh"]):
-                d.re.crossh[i].src, d.crossh_src_im[i] = (sr.data_ptr(),
-                                                          si.data_ptr())
-            d.a_inv, d.b, d.c_r, d.c_i = scal
-            emu = _emulate_k2(d)
+            emu = _emulate_k2(_k2_descriptor(g, seed, scal))
             for e, w in zip(emu, (*want, *acc)):
                 scale = float(w.abs().max()) + 1.0
                 assert np.abs(e - w.double().numpy()).max() < 2e-6 * scale

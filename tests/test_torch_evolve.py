@@ -299,9 +299,6 @@ def test_mesh_and_bf16_are_not_ported():
         tke.evolve_trajectory_kron(mt, 0b1111, 0.1, 1, mesh=object())
     with pytest.raises(NotImplementedError, match="item 13"):
         tke.typicality_correlation_kron(mt, 1.0, 0, 1, (0.0,), mesh=object())
-    with pytest.raises(NotImplementedError, match="bf16 variants of K1 and K2"):
-        tke.evolve_trajectory_kron(mt, 0b1111, 0.1, 1,
-                                   state_dtype=torch.bfloat16)
     # the port reads no environment for routing: K2's use is a field
     planes = tke.kron_planes_matvec_fn(tsk.make_sector_kron_layout(
         mt, mt.kron_splits), device="cpu")

@@ -199,17 +199,35 @@ def test_kron_hamiltonian_module():
 _BM, _BL = 32, 128  # csrc/kron_group.cu tile
 
 
-def _emulate_k1(d):
+def _round_bf16(x):
+    """float64 array -> the float32 accumulator -> one rounding to
+    bfloat16 (to nearest even), back as float64."""
+    return torch.tensor(x, dtype=torch.float32).to(
+        torch.bfloat16).double().numpy()
+
+
+def _emulate_k1(d, store=True):
     """Run kron_group.cu's grid, tiles and epilogue in numpy, reading every
-    operand through the pointers and integers of the ctypes descriptor."""
+    operand through the pointers and integers of the ctypes descriptor.
+    States are read in the descriptor's state type (bfloat16: 2-byte
+    elements, each the high half of a float32) and tables as float32; the
+    sum is kept unrounded, and with `store` a bfloat16 launch rounds it
+    once, as the kernel's single store does (K2 takes it unrounded)."""
     ch, cmp, clp = d.ch, d.cmp, d.clp
+    assert d.state_type in (0, 1)
 
     def arr(ptr, n):
         return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)
                                      ).astype(np.float64)
 
-    T = arr(d.T, ch * cmp * clp)
-    seed = arr(d.seed, ch * cmp * clp) if d.seed else None
+    def sarr(ptr, n):
+        if d.state_type == 0:
+            return arr(ptr, n)
+        u = np.ctypeslib.as_array((ctypes.c_uint16 * n).from_address(ptr))
+        return (u.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+    T = sarr(d.T, ch * cmp * clp)
+    seed = sarr(d.seed, ch * cmp * clp) if d.seed else None
     out = np.full(ch * cmp * clp, np.nan)
     for h in range(ch):
         for m0 in range(0, cmp, _BM):
@@ -235,7 +253,7 @@ def _emulate_k1(d):
                     if m0 + _BM <= x.c0 or m0 >= x.c0 + x.ln:
                         continue
                     n = x.cmp_s * x.clp_s
-                    src = arr(x.src, ch * n)[h * n:(h + 1) * n]
+                    src = sarr(x.src, ch * n)[h * n:(h + 1) * n]
                     seg(src, x.clp_s, x.r0 - x.c0, x.c0, x.c0 + x.ln, x.val,
                         arr(x.A, x.clp_s * clp), clp, x.clp_s)
                 for r in range(_BM):
@@ -257,13 +275,29 @@ def _emulate_k1(d):
                         if not x.cb0 <= h < x.cb0 + x.lnb:
                             continue
                         srow = min(max(h + x.rb0 - x.cb0, 0), x.ch_s - 1)
-                        S = arr(x.src, x.ch_s * x.cmp_s * clp)
+                        S = sarr(x.src, x.ch_s * x.cmp_s * clp)
                         for mr in x.mids[:x.n_mids]:
                             if mr.ca0 <= m < mr.ca0 + mr.lna:
                                 row = (srow * x.cmp_s + mr.ra0 + m - mr.ca0)
                                 v = v + mr.val * S[row * clp:][ls]
                     out[idx + l0:idx + l0 + _BL] = v
+    if store and d.state_type == 1:
+        out = _round_bf16(out)
     return out.reshape(ch, cmp, clp)
+
+
+def _k1_descriptor(call, T, seed, srcs, srcsh):
+    """The group's descriptor as kron_group_apply fills it for a launch
+    (but for `out`), over CPU tensors."""
+    d = call.descriptor(torch.device("cpu"))
+    d.state_type = kg._state_type(T)
+    d.T = T.data_ptr()
+    d.seed = None if seed is None else seed.data_ptr()
+    for i, S in enumerate(srcs):
+        d.cross[i].src = S.data_ptr()
+    for i, S in enumerate(srcsh):
+        d.crossh[i].src = S.data_ptr()
+    return d
 
 
 @pytest.mark.parametrize("L,splits", [(16, None), (12, (5, 4, 3)),
@@ -284,14 +318,7 @@ def test_k1_tile_emulation_matches_reference(L, splits):
         for seed in (None, bt[gi] * 0.5 + 1.0):
             ref = kg.kron_group_apply_reference(bt[gi], seed, srcs, srcsh,
                                                 call)
-            d = call.descriptor(torch.device("cpu"))
-            d.T = bt[gi].data_ptr()
-            d.seed = None if seed is None else seed.data_ptr()
-            for i, S in enumerate(srcs):
-                d.cross[i].src = S.data_ptr()
-            for i, S in enumerate(srcsh):
-                d.crossh[i].src = S.data_ptr()
-            emu = _emulate_k1(d)
+            emu = _emulate_k1(_k1_descriptor(call, bt[gi], seed, srcs, srcsh))
             scale = float(ref.abs().max()) + 1.0
             assert np.abs(emu - ref.double().numpy()).max() < 2e-6 * scale
     assert n_crossh > 0  # the mid|hi slice adds were exercised
@@ -299,6 +326,9 @@ def test_k1_tile_emulation_matches_reference(L, splits):
 
 def test_k1_descriptor_layout_and_refusals():
     assert ctypes.sizeof(kg._KgDesc) == 88 + 40 * 16 + 96 * 8
+    # the state type sits in what was padding after the five ints
+    assert kg._KgDesc.state_type.offset == 84
+    assert kg._KgDesc.cross.offset == 88
     mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
     calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
     with pytest.raises(ValueError, match="tables on"):
