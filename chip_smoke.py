@@ -14,7 +14,12 @@ structure_factor_Sq_kron, kpm_correlation_matrix_kron), every H apply
 through K1; and the flat-state path on the
 embedded layout (ground state, Lanczos and KPM S(q, omega), domain-wall
 trajectory on one vector of 2^L amplitudes), with every H apply through K3,
-the hand-written CUDA fused matvec.
+the hand-written CUDA fused matvec; and the sharded kron path (`mesh=`):
+the ground state, the KPM S(q, omega) and the trajectory again on
+LocalMesh(--shards): four row shards of every kron group on the one card, every
+fused group's local block through K1's crossw variant (its mid|hi terms read
+from exchanged windows), and one apply and a short solve on a ProcessMesh
+over an NCCL group of one rank.
 
 Phases (one line each; a failed phase raises and the script exits non-zero
 with no result line):
@@ -66,6 +71,31 @@ with no result line):
            float32 recurrences, held to 5e-2 of the peak and 1e-3 in each
            row's weight), szsz and S(q) (kron against flat observables,
            1e-5)
+  k1-crossw  K1's crossw variant (float32 and bfloat16 states) against its
+           plain version on the card, on the local blocks of LocalMesh(D) at
+           L=16 (every group fused, D = 2 and 4) and at --L (D = --shards):
+           windows
+           built by the mesh, seeds reduce-scattered; tile pads and the hi
+           padding rows exactly 0; event times of the windowed launches of
+           one sharded apply beside K1's unsharded launches of the same
+           groups; the bound from the run's shapes (real hi rows only, of
+           each window the rows of its mid runs)
+  shard-apply  --L, LocalMesh(D) for D = 1, 2, 4, 8: the sharded fused apply
+           against the unsharded fused apply of the same state (1e-5 of
+           max|y|); ms per apply and its parts (windows, seeds = partials +
+           reduce-scatter, kernels, tails); the mesh's byte counters equal to
+           collective_traffic_model; peak memory of one apply; D = 1 launches
+           no crossw instance
+  shard-main  --L ground state + KPM S(q, omega) with mesh=LocalMesh(--shards),
+           the main phase's q-points and depth: E0 within 1e-4 of main's,
+           residual <= 1e-3, S within 5e-2 of main's peak
+  shard-evolve  --L 5-step domain-wall trajectory with mesh=LocalMesh(--shards)
+           from the evolve phase's bounds, observed through
+           magnetization_per_site_kron_sharded: <Sz_i> within 1e-5 of the
+           evolve phase's; no K2 launch (the sharded terms run plain)
+  dist-1   ProcessMesh over an NCCL group of world size 1: one --L apply and
+           an L=16 ground state equal to LocalMesh(1)'s (skipped, and said
+           so, where torch.distributed has no NCCL)
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^13
@@ -75,7 +105,12 @@ The bounds in the kernel records are the larger of bytes over 3.35 TB/s
 (each input read once, each output written once) and float32 operations
 over 67 TFLOP/s (the H100 SXM data sheet).
 
-Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--profile] [--k3-tiles]
+The sharded phases come on top of the earlier ones, none of which is cut
+in depth for them: with the defaults the whole script takes 5 to 6 minutes
+on an H100 (its limit is 20).
+
+Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--shards 4] [--profile]
+                             [--k3-tiles]
 """
 
 from __future__ import annotations
@@ -126,6 +161,19 @@ def _event_ms(fn, reps=20, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _graph_ms(fn, reps=20):
+    """Median CUDA-event time in ms of one replay of fn()'s launches
+    captured in a CUDA graph: the device's time for them with the host's
+    enqueue cost taken out (an eager loop of many short launches is paced
+    by the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _event_ms(graph.replay, reps=reps)
 
 
 def dense_sector_H(model):
@@ -232,15 +280,19 @@ def _k1_inputs(L, dev, sdt=torch.float32):
     return m, lay, H, bv, args
 
 
-def _group_work(call, seeded, planes=1, state_bytes=4):
+def _group_work(call, seeded, planes=1, state_bytes=4, rows=None):
     """(bytes, flops) of one fused group's kernel launch: the group's own
     tensor read and written once (cross sources are other groups' tensors,
     counted with their own group), the seed and the tables read once, and
     the matrix products of the hi-local terms. K2 (planes=2) also reads
     prev and acc and writes acc, per plane, and runs the 10-flop epilogue.
     States take `state_bytes` an element (2 for bfloat16); the tables and
-    K2's accumulator are float32 whatever the state."""
+    K2's accumulator are float32 whatever the state. `rows` counts that
+    many hi rows instead of the call's (a shard's last block: its real
+    rows, not the zero padding)."""
     ch, cmp, clp = call.shape
+    if rows is not None:
+        ch = rows
     n = ch * cmp * clp
     flops = 0
     tab = 0
@@ -1277,6 +1329,416 @@ def phase_flat_main(L, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded kron path
+# ---------------------------------------------------------------------------
+
+
+def _sharded(L, D, dev, model=None):
+    """(model, ShardedKronHamiltonian over LocalMesh(D) on dev, layout,
+    spec, mesh) at size L (the Heisenberg chain unless a model is given)."""
+    import spindynamics_tpu_torch as pt
+
+    m = pt.heisenberg_chain(L, nup=L // 2) if model is None else model
+    mesh = pt.LocalMesh(D, dev)
+    H, lay, spec = pt.sharded_kron_scaling_bv_matvec_fn(m, mesh)
+    return m, H, lay, spec, mesh
+
+
+def _shard_pieces(H, bv):
+    """The parts of one sharded apply of `bv`, as the apply computes them:
+    (windows, {gi: seed leaf in the state dtype}, per-shard local leaves
+    G[i], kernel args [(T, seed, srcs, srcsh, wins, call, gi, i)] over the
+    fused groups and local shards)."""
+    from spindynamics_tpu_torch.parallel import sharded_kron_scaling as sk
+
+    lay, spec, cfg, mesh = H.layout, H.spec, H.cfg, H.mesh
+    tables, shards = H._state()
+    sdt = bv.dtype
+
+    def local(x, gi, i):
+        return x[i * spec.b[gi]: (i + 1) * spec.b[gi]]
+
+    G = [[local(l, gi, i) for gi, l in enumerate(bv.leaves)]
+         for i in range(mesh.n_local)]
+    wins = sk._build_crossh_windows_leaves(bv.leaves, cfg.moves, mesh)
+    seeds = {}
+    for gi in range(len(lay.groups)):
+        if sk._has_partial(lay, cfg, gi):
+            cross = not (gi in cfg.fused_set
+                         and cfg.plans[gi].crossh_fusable)
+            seeds[gi] = mesh.reduce_scatter_rows(
+                sk._hi_partial(sh, gi, G[i], tables, lay, spec, cross)
+                for i, sh in enumerate(shards)).wait().to(sdt)
+    args = []
+    for gi in sorted(cfg.fused_set):
+        for i, sh in enumerate(shards):
+            c = sh["calls"][gi]
+            w = [local(wins[cfg.win_pos[(gi, ei)]], gi, i)
+                 for ei in range(len(c.crossw))]
+            args.append((G[i][gi],
+                         local(seeds[gi], gi, i) if gi in seeds else None,
+                         [G[i][x[0]] for x in c.cross],
+                         [G[i][x[0]] for x in c.crossh], w, c, gi, i))
+    return wins, seeds, G, args
+
+
+def _crossw_work(call, seeded, state_bytes, real):
+    """(bytes, flops) of one windowed launch over the block's `real` hi
+    rows (the last shard's zero padding rows are no work): the local
+    block's own work (_group_work) plus, per window, the rows of its mid
+    runs read once and one multiply-add per element of them."""
+    nb, fl = _group_work(call, seeded, state_bytes=state_bytes, rows=real)
+    clp = call.shape[2]
+    for (_, mids) in call.crossw:
+        run_rows = sum(lna for (_, _, lna, _) in mids)
+        nb += state_bytes * real * run_rows * clp
+        fl += 2 * real * run_rows * clp
+    return nb, fl
+
+
+def phase_k1_crossw(L, D, dev, sdt):
+    """K1's crossw variant vs its plain version on the same CUDA tensors:
+    every windowed launch of one sharded apply over LocalMesh(D) at L.
+    Returns (max abs err, worst error measure, crossw ms, plain ms, bound)
+    summed over those launches."""
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.solvers.blockvec import bv_random
+
+    bf16 = sdt == torch.bfloat16
+    m, H, lay, spec, mesh = _sharded(L, D, dev)
+    g = torch.Generator(device=dev).manual_seed(100 * L + D)
+    bv = bv_random(lay, g, sdt, dev, shard=(spec, mesh))
+    _, _, _, args = _shard_pieces(H, bv)
+    args = [a for a in args if a[4]]  # the launches that read windows
+    if not args:
+        raise RuntimeError(f"L={L} D={D}: no windowed launch")
+    abs_err = worst = 0.0
+    n0 = kg.kernel_launch_count(sdt, crossw=True)
+    for (T, seed, srcs, srcsh, w, c, gi, i) in args:
+        got = kg.kron_group_apply(T, seed, srcs, srcsh, c, w)
+        want = kg.kron_group_apply_reference(
+            _lift(T), _lift(seed), _lift(srcs), _lift(srcsh), c, _lift(w))
+        torch.cuda.synchronize()
+        (_, _, _, ch, cm, cl, cmp, clp) = lay.groups[gi]
+        real = max(0, min(spec.b[gi], ch - i * spec.b[gi]))
+        if (got[:, cm:, :].any() or got[:, :, cl:].any()
+                or got[real:].any()):
+            raise RuntimeError(f"L={L} D={D} group {gi} shard {i}: tile pads "
+                               f"or hi padding rows not 0")
+        if got.dtype != sdt:
+            raise RuntimeError(f"crossw returned {got.dtype} for {sdt}")
+        if bf16:
+            d, r = _one_rounding(got, want)
+        else:
+            d = float((got - want).abs().max())
+            r = d / max(float(want.abs().max()), 1e-30) / 1e-5
+        abs_err, worst = max(abs_err, d), max(worst, r)
+    if kg.kernel_launch_count(sdt, crossw=True) - n0 != len(args):
+        raise RuntimeError("the crossw launches were not counted")
+    if not worst <= 1.0:
+        raise RuntimeError(
+            f"L={L} D={D} {sdt}: K1 crossw is {worst:.2f}x its limit off "
+            f"the plain version")
+
+    def run(fn):
+        def go():
+            for (T, seed, srcs, srcsh, w, c, _, _) in args:
+                fn(T, seed, srcs, srcsh, c, w)
+        return go
+
+    groups = {a[6] for a in args}
+    _, _, _, _, uargs = _k1_inputs(L, dev, sdt)
+    uargs = [a for a in uargs if a[5].gi in groups]
+
+    def run_unsharded():
+        for (T, seed, _, srcs, srcsh, c) in uargs:
+            kg.kron_group_apply(T, seed, srcs, srcsh, c)
+
+    k_ms = _event_ms(run(kg.kron_group_apply))
+    p_ms = _event_ms(run(kg.kron_group_apply_reference), reps=10)
+    u_ms = _event_ms(run_unsharded)
+    k_ms2 = _event_ms(run(kg.kron_group_apply))
+    g_ms = _graph_ms(run(kg.kron_group_apply))
+    gu_ms = _graph_ms(run_unsharded)
+    work = [_crossw_work(c, seed is not None, 2 if bf16 else 4,
+                         max(0, min(spec.b[gi],
+                                    lay.groups[gi][3] - i * spec.b[gi])))
+            for (_, seed, _, _, _, c, gi, i) in args]
+    nb, fl = sum(w[0] for w in work), sum(w[1] for w in work)
+    bound = _bound(nb, fl)
+    lim = ("|d| / (2^-8 |y| + 1e-5 max|y|) against the plain float32 value"
+           if bf16 else "max|d| / (1e-5 max|y|)")
+    print(f"k1-crossw L={L} D={D} {str(sdt).split('.')[-1]}: {len(args)} "
+          f"windowed launches over {len(groups)} groups x {D} shards | worst "
+          f"{lim} {worst:.3f} (<= 1), max|d| {abs_err:.3e}, tile pads and hi "
+          f"padding rows 0 | the windowed launches of one sharded apply "
+          f"(median of 20, crossw/plain/unsharded/crossw): crossw "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, K1 unsharded on the same "
+          f"{len(uargs)} groups {u_ms:.3f} ms, crossw {k_ms2:.3f} ms | the "
+          f"same launches replayed from a CUDA graph (no host in the "
+          f"loop): crossw {g_ms:.3f} ms, K1 unsharded {gu_ms:.3f} ms | "
+          f"moves {nb / 1e9:.3f} GB and does {fl / 1e9:.1f} GFLOP: bound "
+          f"{bound[0]:.3f} ms by {bound[1]}")
+    return abs_err, worst, min(k_ms, k_ms2), p_ms, bound, g_ms
+
+
+def phase_shard_apply(L, dev):
+    """The sharded fused apply over LocalMesh(D), D = 1, 2, 4, 8, against
+    the unsharded fused apply of the same state."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import apply_H_sector_kron
+    from spindynamics_tpu_torch.parallel import sharded_kron_scaling as sk
+    from spindynamics_tpu_torch.solvers.blockvec import bv_random
+
+    m = pt.heisenberg_chain(L, nup=L // 2)
+    H0 = None
+    for D in (1, 2, 4, 8):
+        _, H, lay, spec, mesh = _sharded(L, D, dev, m)
+        if H0 is None:
+            H0 = pt.KronHamiltonian(lay, dtype=torch.float32, device=dev)
+            g = torch.Generator(device=dev).manual_seed(L)
+            bv = bv_random(lay, g, torch.float32, dev)
+            y0 = H0(bv)
+            scale = max(float(l.abs().max()) for l in y0.leaves)
+            u_ms = _event_ms(lambda: H0(bv))
+        x = pt.shard_kron_blockvec(bv, spec, mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_counters()
+        kg.reset_kernel_launch_count()
+        ys = H(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        n_k1 = kg.kernel_launch_count()
+        n_cw = kg.kernel_launch_count(crossw=True)
+        cnt = mesh.counters()
+        model = pt.collective_traffic_model(lay, spec, H.cfg)
+        y = pt.unshard_kron_blockvec(ys, spec)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(y.leaves, y0.leaves)) / scale
+        pads = any(bool(l[ch:].any()) for l, (_, _, _, ch, *_r)
+                   in zip(ys.leaves, lay.groups))
+        del ys, y
+        if not err <= 1e-5:
+            raise RuntimeError(f"D={D}: sharded apply off the unsharded one "
+                               f"by {err:.3e} of max|y|")
+        if pads:
+            raise RuntimeError(f"D={D}: hi padding rows not 0")
+        for k in ("n_reduce_scatter", "reduce_scatter_bytes",
+                  "window_bytes"):
+            if cnt[k] != model[k]:
+                raise RuntimeError(f"D={D}: mesh counted {k} {cnt[k]}, the "
+                                   f"traffic model says {model[k]}")
+        if D == 1 and n_cw != 0:
+            raise RuntimeError(f"D=1 launched {n_cw} crossw instances")
+        if D > 1 and not n_cw > 0:
+            raise RuntimeError(f"D={D} launched no crossw instance")
+        # the parts of one apply, each timed alone on this state
+        tables, shards = H._state()
+        cfg = H.cfg
+        wins, seeds, G, args = _shard_pieces(H, x)
+        tail = frozenset(range(len(lay.groups))) - cfg.fused_set
+
+        def t_windows():
+            sk._build_crossh_windows_leaves(x.leaves, cfg.moves, mesh)
+
+        def t_seeds():
+            for gi in seeds:
+                cross = not (gi in cfg.fused_set
+                             and cfg.plans[gi].crossh_fusable)
+                mesh.reduce_scatter_rows(
+                    sk._hi_partial(sh, gi, G[i], tables, lay, spec, cross)
+                    for i, sh in enumerate(shards)).wait()
+
+        def t_kernels():
+            for (T, seed, srcs, srcsh, w, c, _, _) in args:
+                kg.kron_group_apply(T, seed, srcs, srcsh, c, w)
+
+        def t_tails():
+            for i, sh in enumerate(shards):
+                apply_H_sector_kron(G[i], None, lay, sh["tabs"],
+                                    terms="diag,lo,mid,crossl",
+                                    group_filter=tail)
+
+        parts = {name: _event_ms(fn, reps=10) for name, fn in (
+            ("windows", t_windows), ("seeds", t_seeds),
+            ("kernels", t_kernels), ("tails", t_tails))}
+        del wins, seeds, G, args
+        full = _event_ms(lambda: H(x), reps=10)
+        print(f"shard-apply L={L} D={D}: max|d|/max|y| {err:.3e} (<= 1e-5) "
+              f"against the unsharded fused apply, hi padding rows 0 | one "
+              f"apply {full:.3f} ms (unsharded {u_ms:.3f} ms) = windows "
+              f"{parts['windows']:.3f} + seeds {parts['seeds']:.3f} + "
+              f"kernels {parts['kernels']:.3f} + tails {parts['tails']:.3f} "
+              f"ms (each timed alone, median of 10) | K1 launches {n_k1}, "
+              f"crossw {n_cw} | reduce-scatters {cnt['n_reduce_scatter']} x "
+              f"{cnt['reduce_scatter_bytes'] / 2**20:.1f} MiB of partials, "
+              f"windows {cnt['window_bytes'] / 2**20:.1f} MiB: equal to "
+              f"collective_traffic_model | peak of one apply above the "
+              f"state {peak / 2**20:.1f} MiB (a state is "
+              f"{4 * spec.n_sharded / 2**20:.1f} MiB)")
+        del H, x
+
+
+def phase_shard_main(L, D, dev, E0_main, S_main):
+    """The main path again on LocalMesh(D): returns the K1 crossw launch
+    count of the run."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import kron_group as kg
+
+    m = pt.heisenberg_chain(L, nup=L // 2)
+    mesh = pt.LocalMesh(D, dev)
+    qs = [2 * np.pi * k / L for k in (4, 7, L // 2)]
+    omega = np.linspace(0.0, 4.0, 200)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.reset_kernel_launch_count()
+    (E0, psi, info, lay), t_gs = _sync_time(lambda: pt.groundstate_kron(
+        m, lanc_m=40, cycles=6, target_residual=1e-3, mesh=mesh))
+    (S, kinfo), t_kpm = _sync_time(lambda: pt.kpm_sqw_kron(
+        m, qs, omega, kpm_m=100, psi0=psi, E0=E0, info=info, mesh=mesh))
+    n_k1 = kg.kernel_launch_count()
+    n_cw = kg.kernel_launch_count(crossw=True)
+    peak = torch.cuda.max_memory_allocated()
+    cnt = mesh.counters()
+    smax = float(np.abs(S_main).max())
+    dS = float(np.abs(S - S_main).max())
+    print(f"shard-main L={L} LocalMesh({D}): E0 {E0:.6f} (main {E0_main:.6f}, "
+          f"|d| {abs(E0 - E0_main):.2e} <= 1e-4) residual "
+          f"{info['residual']:.3e} cycles {info['cycles']} polished "
+          f"{info.get('polished', 0)} | ground state {t_gs:.2f} s, KPM (3 q x "
+          f"100 moments + 40 bounds steps) {t_kpm:.2f} s | max |S - S_main| "
+          f"{dS:.3e} = {dS / smax:.2e} of main's peak (<= 5e-2) | peak "
+          f"{peak / 2**30:.2f} GiB | K1 launches {n_k1}, of them crossw "
+          f"{n_cw} | reduce-scatters {cnt['n_reduce_scatter']}, window "
+          f"exchanges {cnt['n_window_exchange']}, all-reduces "
+          f"{cnt['n_all_reduce']}")
+    if psi.mesh is not mesh or any(
+            l.shape[0] != chp for l, chp in zip(
+                psi.leaves, pt.kron_shard_spec(lay, D).ch_pad)):
+        raise RuntimeError("the sharded ground state left the sharded form")
+    if not info["residual"] <= 1e-3:
+        raise RuntimeError(f"sharded residual {info['residual']} > 1e-3")
+    if not abs(E0 - E0_main) <= 1e-4:
+        raise RuntimeError(f"sharded E0 {E0} off main's {E0_main}")
+    if not (np.all(np.isfinite(S)) and S.min() >= -1e-6 * smax
+            and dS <= 5e-2 * smax):
+        raise RuntimeError(f"sharded S(q, omega) off main's by {dS}")
+    if not n_cw > 0:
+        raise RuntimeError("the sharded main path launched no crossw "
+                           "instance")
+    return n_cw
+
+
+def phase_shard_evolve(L, D, dev, ref):
+    """The evolve phase's trajectory on LocalMesh(D), from its bounds
+    (`ref`: phase_evolve's info)."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
+
+    m = _evolve_model(L)
+    bits = pt.domain_wall_bitstring(m)
+    mesh = pt.LocalMesh(D, dev)
+    spec = pt.kron_shard_spec(make_sector_kron_layout(m, m.kron_splits), D)
+
+    def observe(pair, lay):
+        return pt.magnetization_per_site_kron_sharded(pair, spec, mesh)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_cw0 = kg.kernel_launch_count(crossw=True)
+    n_k20 = ct.kernel_launch_count()
+    (pair, obs, info), t_all = _sync_time(lambda: pt.evolve_trajectory_kron(
+        m, bits, dt=0.1, n_steps=5, cheb_n=40, Ebounds=ref["Ebounds"],
+        mesh=mesh, observe=observe))
+    n_cw = kg.kernel_launch_count(crossw=True) - n_cw0
+    n_k2 = ct.kernel_launch_count() - n_k20
+    peak = torch.cuda.max_memory_allocated()
+    steps = info["step_seconds"]
+    dS = float(np.abs(obs - ref["obs"]).max())
+    print(f"shard-evolve L={L} LocalMesh({D}): max |d<Sz_i>| against the "
+          f"evolve phase over 5 steps {dS:.2e} (<= 1e-5) | norms "
+          f"{[f'{x:.7f}' for x in info['norms']]} | seconds per step median "
+          f"{float(np.median(steps)):.3f} (plain terms; the evolve phase's "
+          f"K2 step {float(np.median(ref['step_seconds'])):.3f}) | all "
+          f"{t_all:.2f} s | peak {peak / 2**30:.2f} GiB | crossw launches "
+          f"{n_cw}, K2 launches {n_k2}")
+    if pair[0].mesh is not mesh:
+        raise RuntimeError("the sharded trajectory left the mesh")
+    if not dS <= 1e-5:
+        raise RuntimeError(f"sharded <Sz_i> off the evolve phase by {dS}")
+    if not np.all(np.abs(info["norms"] - 1.0) <= 1e-4):
+        raise RuntimeError(f"sharded norms off 1: {info['norms']}")
+    if not (n_cw > 0 and n_k2 == 0):
+        raise RuntimeError(f"the sharded trajectory launched crossw {n_cw} "
+                           f"and K2 {n_k2} times")
+
+
+def phase_dist1(L, dev):
+    """ProcessMesh over an NCCL group of one rank on the card: one apply
+    at L and an L=16 ground state against LocalMesh(1)."""
+    import socket
+
+    import spindynamics_tpu_torch as pt
+    import torch.distributed as dist
+    from spindynamics_tpu_torch.solvers.blockvec import bv_random
+
+    if not (dist.is_available() and dist.is_nccl_available()):
+        print("dist-1: torch.distributed has no NCCL here: skipped")
+        return
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        pmesh = pt.ProcessMesh()
+        m = pt.heisenberg_chain(L, nup=L // 2)
+        Hp, lay, spec = pt.sharded_kron_scaling_bv_matvec_fn(m, pmesh,
+                                                             device=dev)
+        Hl, _, _ = pt.sharded_kron_scaling_bv_matvec_fn(
+            m, pt.LocalMesh(1, dev))
+        g = torch.Generator(device=dev).manual_seed(5)
+        bv = bv_random(lay, g, torch.float32, dev)
+        (yp, t_ap) = _sync_time(
+            lambda: Hp(pt.shard_kron_blockvec(bv, spec, pmesh)))
+        yl = Hl(pt.shard_kron_blockvec(bv, spec, Hl.mesh))
+        scale = max(float(l.abs().max()) for l in yl.leaves)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(yp.leaves, yl.leaves)) / scale
+        cnt = pmesh.counters()
+        m16 = pt.heisenberg_chain(16, nup=8)
+        E_p, _, info_p, _ = pt.groundstate_kron(
+            m16, lanc_m=40, cycles=2, target_residual=1e-3, mesh=pmesh,
+            device=dev)
+        E_l, _, info_l, _ = pt.groundstate_kron(
+            m16, lanc_m=40, cycles=2, target_residual=1e-3,
+            mesh=pt.LocalMesh(1, dev))
+        torch.cuda.synchronize()
+        print(f"dist-1: ProcessMesh over NCCL, world size 1, L={L}: one "
+              f"apply max|d|/max|y| {err:.3e} (<= 1e-6) against "
+              f"LocalMesh(1), first apply {t_ap:.2f} s (NCCL set-up), "
+              f"reduce-scatters {cnt['n_reduce_scatter']} x "
+              f"{cnt['reduce_scatter_bytes'] / 2**20:.1f} MiB | L=16 ground "
+              f"state E0 {E_p:.8f} against {E_l:.8f} (|d| "
+              f"{abs(E_p - E_l):.2e} <= 1e-6), residuals "
+              f"{info_p['residual']:.2e} / {info_l['residual']:.2e}")
+        if not err <= 1e-6:
+            raise RuntimeError(f"ProcessMesh apply off LocalMesh(1) by {err}")
+        if not abs(E_p - E_l) <= 1e-6:
+            raise RuntimeError(f"ProcessMesh E0 {E_p} off LocalMesh(1) {E_l}")
+        if not cnt["n_reduce_scatter"] > 0:
+            raise RuntimeError("the ProcessMesh apply started no "
+                               "reduce-scatter")
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_oracle(dev):
     import spindynamics_tpu_torch as pt
 
@@ -1328,7 +1790,7 @@ def phase_main(L, dev):
     print(f"sqw L={L}: shape {S.shape}, max {smax:.4f}, peak omega per q "
           f"{[float(omega[i]) for i in S.argmax(axis=1)]}, "
           f"bounds {tuple(round(b, 4) for b in kinfo['bounds'])}")
-    return launches, psi, E0, kinfo
+    return launches, psi, E0, kinfo, S
 
 
 def phase_profile(L, dev, psi, kinfo):
@@ -1400,6 +1862,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--L", type=int, default=28)
     ap.add_argument("--L-flat", type=int, default=26, dest="L_flat")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="D of the --L k1-crossw, shard-main and "
+                         "shard-evolve phases (>= 2)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
     args = ap.parse_args(argv)
@@ -1407,6 +1872,9 @@ def main(argv=None):
         raise SystemExit("--L must be even, 16..32")
     if args.L_flat % 2 or not 16 <= args.L_flat <= 28:
         raise SystemExit("--L-flat must be even, 16..28")
+    if args.shards < 2:
+        raise SystemExit("--shards must be at least 2 (one shard runs no "
+                         "crossw instance)")
 
     phase_device()
     dev = torch.device("cuda")
@@ -1422,7 +1890,7 @@ def main(argv=None):
     phase_k2_bf16(16, dev)
     b2_err, _, b2_ms, b2_plain, b2_bound = phase_k2_bf16(args.L, dev)
     phase_oracle(dev)
-    launches, psi, E0, kinfo = phase_main(args.L, dev)
+    launches, psi, E0, kinfo, S_main = phase_main(args.L, dev)
     if args.profile:
         phase_profile(args.L, dev, psi, kinfo)
     # the ground state waits on the host while the trajectories run, so
@@ -1446,6 +1914,16 @@ def main(argv=None):
     launches3 = phase_flat_main(args.L_flat, dev)
     if args.profile:
         phase_profile_flat(args.L_flat, dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for D in (2, 4):
+        phase_k1_crossw(16, D, dev, f32)
+        phase_k1_crossw(16, D, dev, bf16)
+    cw = phase_k1_crossw(args.L, args.shards, dev, f32)
+    cwb = phase_k1_crossw(args.L, args.shards, dev, bf16)
+    phase_shard_apply(args.L, dev)
+    cw_launches = phase_shard_main(args.L, args.shards, dev, E0, S_main)
+    phase_shard_evolve(args.L, args.shards, dev, einfo)
+    phase_dist1(args.L, dev)
     print(json.dumps({"kernels": [{
         "name": "K1 fused kron group apply",
         "route": "cuda",
@@ -1516,6 +1994,26 @@ def main(argv=None):
         "complex_plain_ms": k3["complex"]["plain_ms"],
         "complex_bound_ms": k3["complex"]["bound"][0],
         "complex_copy_ms": k3["complex"]["copy_ms"],
+    }, {
+        "name": "K1 crossw variant (sharded local block, windows)",
+        "route": "cuda",
+        "source": "spindynamics_tpu_torch/csrc/kron_group.cu",
+        "replaces": "spindynamics_tpu/ops/pallas_kron.py:230",
+        "launches": cw_launches,
+        "max_abs_err": cw[0],
+        "ms": cw[2],
+        "plain_ms": cw[3],
+        "bound_ms": cw[4][0],
+        "bound_by": cw[4][1],
+        "library_ms": None,
+        "L": args.L,
+        "D": args.shards,
+        "bf16_max_abs_err": cwb[0],
+        "bf16_ms": cwb[2],
+        "bf16_plain_ms": cwb[3],
+        "bf16_bound_ms": cwb[4][0],
+        "graph_replay_ms": cw[5],
+        "bf16_graph_replay_ms": cwb[5],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ observables_kron.py); and the
 flat-state path on the full and embedded layouts (ops/apply.py with the
 blocked apply, the flat Lanczos, Chebyshev, Krylov, Lanczos-S(q, omega) and
 KPM solvers, observables.py, the flat runners) with K3, the fused matvec,
-in CUDA (ops/fused_matvec.py, csrc/fused_matvec.cu). Entry points run on the
+in CUDA (ops/fused_matvec.py, csrc/fused_matvec.cu); and the sharded kron
+path (`mesh=` in every kron entry point: parallel/mesh.py,
+parallel/sharded_kron_scaling.py) with K1's crossw variant, the apply on one
+shard's local block with its mid|hi terms read from exchanged windows, in
+the same CUDA sources. Entry points run on the
 card unless the caller passes device="cpu". It imports torch, numpy and
 scipy, never jax.
 """
@@ -41,7 +45,8 @@ from .observables import (  # noqa: E402
     structure_factor_Sq_dict, szsz_matrix)
 from .observables_kron import (  # noqa: E402
     bv_sz_q, connected_correlations_kron, magnetization_per_site_kron,
-    structure_factor_Sq_kron, szsz_matrix_kron)
+    magnetization_per_site_kron_sharded, structure_factor_Sq_kron,
+    szsz_matrix_kron, szsz_matrix_kron_sharded)
 from .ops.apply import (  # noqa: E402
     FlatHamiltonian, apply_H, apply_rescaled_H, build_dense_H, matvec_fn)
 from .ops.fused_matvec import (  # noqa: E402
@@ -49,6 +54,13 @@ from .ops.fused_matvec import (  # noqa: E402
 from .ops.kron_group import KronHamiltonian, kernel_launch_count  # noqa: E402
 from .ops.spin_ops import (  # noqa: E402
     apply_spin_operator, make_spin_operator, sz_q_vector, sz_q_weights)
+from .parallel.distributed import (  # noqa: E402
+    initialize_distributed, local_shard_info, mesh_from_topology)
+from .parallel.mesh import LocalMesh, ProcessMesh  # noqa: E402
+from .parallel.sharded_kron_scaling import (  # noqa: E402
+    ShardedKronHamiltonian, collective_traffic_model, kron_shard_spec,
+    shard_kron_blockvec, sharded_kron_scaling_bv_matvec_fn,
+    unshard_kron_blockvec)
 from .solvers.blockvec import BlockVec  # noqa: E402
 from .solvers.chebyshev import chebyshev_time_evolve  # noqa: E402
 from .solvers.kpm import kpm_sqw, kpm_sw  # noqa: E402
@@ -133,4 +145,18 @@ __all__ = [
     "run_krylov",
     "evolve_trajectory",
     "resolve_device",
+    # the sharded kron path (mesh=)
+    "LocalMesh",
+    "ProcessMesh",
+    "ShardedKronHamiltonian",
+    "kron_shard_spec",
+    "shard_kron_blockvec",
+    "unshard_kron_blockvec",
+    "sharded_kron_scaling_bv_matvec_fn",
+    "collective_traffic_model",
+    "szsz_matrix_kron_sharded",
+    "magnetization_per_site_kron_sharded",
+    "initialize_distributed",
+    "mesh_from_topology",
+    "local_shard_info",
 ]

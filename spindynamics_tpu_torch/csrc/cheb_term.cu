@@ -138,7 +138,8 @@ extern "C" int ct_desc_size(void) { return (int)sizeof(CtDesc); }
 extern "C" int ct_launch(const CtDesc* desc, void* stream) {
   const CtDesc& c = *desc;
   const KgDesc& d = c.re;
-  if (!desc_ok(d) || d.out == nullptr || d.T == nullptr ||
+  // K2 takes no windows: the sharded evolve runs the plain recurrence
+  if (!desc_ok(d) || d.n_crossw != 0 || d.out == nullptr || d.T == nullptr ||
       c.next_im == nullptr || c.T_im == nullptr || c.prev_re == nullptr ||
       c.prev_im == nullptr || c.acc_re == nullptr || c.acc_im == nullptr ||
       (d.seed == nullptr) != (c.seed_im == nullptr))

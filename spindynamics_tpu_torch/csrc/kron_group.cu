@@ -10,6 +10,14 @@
 //          + sum_lo|mid  val * (S[h, r0:r0+ln, :] @ A)       into mid rows c0:c0+ln
 //          + sum_mid|hi  val * S[h+rb0-cb0, ra0:ra0+lna, :]   into mid rows ca0:ca0+lna,
 //                                                             for h in [cb0, cb0+lnb)
+//          + sum_window  val * win[h, ra0:ra0+lna, :]            into mid rows ca0:ca0+lna
+//
+// The last line is the crossw variant (the TPU kernel's crossw_shapes), used
+// by the sharded apply: a launch covers one shard's local hi block, the
+// mid|hi source rows live on other shards, and each term arrives as a window
+// aligned to the output's rows (KgCrossW in kron_tile.cuh). The TPU kernel
+// read-modify-writes each window slab into its VMEM row; here the window is
+// one more gather in the epilogue of the tile that owns the element.
 //
 // Design. The TPU kernel streams one whole [cmp, clp] hi row through VMEM
 // per grid step and read-modify-writes the cross slabs into it. A Hopper
@@ -74,9 +82,10 @@ kron_group_kernel(const __grid_constant__ KgDesc d) {
     const int m = m0 + ty * 4 + i;
     if (m >= d.cmp) break;
     float4 t;
-    const float4 r = hi_local_row(
+    float4 r = hi_local_row(
         d, acc[i], T, static_cast<const S*>(d.seed),
         [&](int c) { return d.crossh[c].src; }, h, m, l, t);
+    window_row_add<S>(d, r, h, m, l);
     st4(static_cast<S*>(d.out) + (size_t)h * d.cmp * d.clp +
             (size_t)m * d.clp + l, r);
   }

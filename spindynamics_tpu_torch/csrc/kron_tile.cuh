@@ -6,8 +6,9 @@
 // [ch, cmp, clp]. tile_products() gathers the three kinds of matrix product
 // of the tile (T@W_lo, W_mid^T@T, lo|mid cross terms) into a register
 // accumulator; hi_local_row() adds the seed, the diagonal and the mid|hi
-// slice adds for one row of a thread's 4x4 sub-tile. K2 runs both once per
-// (re, im) plane. Each thread's result for an element depends only on that
+// slice adds for one row of a thread's 4x4 sub-tile; window_row_add() adds
+// the mid|hi terms of a sharded launch, which arrive as windows. K2 runs the
+// first two once per (re, im) plane and takes no windows. Each thread's result for an element depends only on that
 // element's inputs and a fixed operation order, so both kernels are
 // deterministic.
 //
@@ -26,6 +27,7 @@
 
 #define KG_MAX_CROSS 16
 #define KG_MAX_CROSSH 8
+#define KG_MAX_CROSSW 8
 #define KG_MAX_MIDS 4
 
 // KgDesc.state_type: the element type of every state tensor of a launch
@@ -53,6 +55,17 @@ struct KgCrossH {       // mid|hi term: one hi run x 1..KG_MAX_MIDS mid runs
   KgMid mids[KG_MAX_MIDS];
 };
 
+// mid|hi term of a launch on one shard's LOCAL hi block (the crossw
+// variant): the source rows live on other shards, so the term arrives as a
+// window aligned to the output's hi rows, the hi run's shift and mask already
+// applied (rows outside the run are zero). Only the mid runs remain.
+struct KgCrossW {
+  const void* win;      // window [ch, cmp_s, clp], state type
+  int cmp_s;
+  int n_mids;
+  KgMid mids[KG_MAX_MIDS];
+};
+
 struct KgDesc {
   void* out;            // [ch, cmp, clp], state type
   const void* T;        // [ch, cmp, clp], state type
@@ -65,8 +78,10 @@ struct KgDesc {
   int ch, cmp, clp;
   int n_cross, n_crossh;
   int state_type;       // KG_STATE_F32 or KG_STATE_BF16
+  int n_crossw;
   KgCross cross[KG_MAX_CROSS];
   KgCrossH crossh[KG_MAX_CROSSH];
+  KgCrossW crossw[KG_MAX_CROSSW];
 };
 
 namespace kron_tile {
@@ -86,7 +101,8 @@ inline bool desc_ok(const KgDesc& d) {
   return (d.state_type == KG_STATE_F32 || d.state_type == KG_STATE_BF16) &&
          d.ch >= 1 && d.cmp >= 1 && d.clp >= 1 && d.clp % BL == 0 &&
          d.cmp % BK == 0 && d.n_cross >= 0 && d.n_cross <= KG_MAX_CROSS &&
-         d.n_crossh >= 0 && d.n_crossh <= KG_MAX_CROSSH;
+         d.n_crossh >= 0 && d.n_crossh <= KG_MAX_CROSSH &&
+         d.n_crossw >= 0 && d.n_crossw <= KG_MAX_CROSSW;
 }
 
 inline dim3 grid_of(const KgDesc& d) {
@@ -245,6 +261,27 @@ __device__ __forceinline__ float4 hi_local_row(
     }
   }
   return r;
+}
+
+// The windowed mid|hi terms at out[h, m, l:l+4]: for every window whose mid
+// run holds m, r += val * win[h, ra0 + m - ca0, l:l+4]. A gather like the
+// rest of the tile: the window shares the output's hi row, so there is no
+// row shift and no range test on h.
+template <class S>
+__device__ __forceinline__ void window_row_add(
+    const KgDesc& d, float4& r, int h, int m, int l) {
+  const int clp = d.clp;
+  for (int c = 0; c < d.n_crossw; ++c) {
+    const KgCrossW& x = d.crossw[c];
+    const S* Wh = static_cast<const S*>(x.win) + (size_t)h * x.cmp_s * clp;
+    for (int k = 0; k < x.n_mids; ++k) {
+      const KgMid& mr = x.mids[k];
+      if (m < mr.ca0 || m >= mr.ca0 + mr.lna) continue;
+      const float4 s = ld4(Wh + (size_t)(mr.ra0 + m - mr.ca0) * clp + l);
+      r.x += mr.val * s.x; r.y += mr.val * s.y;
+      r.z += mr.val * s.z; r.w += mr.val * s.w;
+    }
+  }
 }
 
 }  // namespace kron_tile

@@ -8,9 +8,15 @@ diagonal observable is a function of the per-axis marginals of a weight
 (|psi|^2 for <Sz_i> and <Sz_i Sz_j>): the 1-D marginals give all L one-site
 moments and the same-part pair correlators, the 2-D marginals the
 cross-part ones, so one pass over the state gives all L^2 correlators (ref
-src/Observables.jl:14-110 loops scalars). The sharded forms
-(szsz_matrix_kron_sharded, magnetization_per_site_kron_sharded) wait for
-the multi-GPU slice.
+src/Observables.jl:14-110 loops scalars).
+
+Row-sharded states (a BlockVec with a `mesh`, parallel/mesh.py) are never
+gathered: every per-hi-rank table is zero-padded to the padded hi axis and
+cut to the rows the process holds (`_hi_rows`), the marginals are summed
+over those rows, and one all-reduce of the O(L^2) accumulators finishes the
+observable. szsz_matrix_kron_sharded and
+magnetization_per_site_kron_sharded keep the JAX package's signatures over
+that.
 """
 
 from __future__ import annotations
@@ -24,7 +30,24 @@ from .solvers.blockvec import BlockVec
 __all__ = ["bv_sz_q_weights", "bv_sz_q_apply", "bv_sz_q", "bv_probs",
            "bv_site_moments", "magnetization_per_site_kron",
            "szsz_matrix_kron", "connected_correlations_kron",
-           "structure_factor_Sq_kron", "bv_apply_sz"]
+           "structure_factor_Sq_kron", "bv_apply_sz",
+           "szsz_matrix_kron_sharded", "magnetization_per_site_kron_sharded"]
+
+
+def _mesh_of(x):
+    """The mesh of a BlockVec or of an (re, im) pair's first plane."""
+    return getattr(x[0] if isinstance(x, tuple) else x, "mesh", None)
+
+
+def _hi_rows(v: np.ndarray, n_rows: int, mesh=None) -> np.ndarray:
+    """The rows of a per-hi-rank table v ([C_h] or [C_h, ...]) that belong
+    to a leaf with n_rows hi rows: v zero-padded to n_rows, or, on a mesh,
+    to the padded hi axis D*b (b = n_rows / the process's shard count) and
+    cut to the rows this process holds."""
+    total = n_rows if mesh is None else mesh.D * (n_rows // mesh.n_local)
+    if v.shape[0] != total:
+        v = np.pad(v, ((0, total - v.shape[0]),) + ((0, 0),) * (v.ndim - 1))
+    return v if mesh is None else v[mesh.row_slice(n_rows // mesh.n_local)]
 
 
 def _sz_tables(layout: SectorKronLayout):
@@ -59,10 +82,11 @@ def _sz_tables(layout: SectorKronLayout):
 
 
 def bv_sz_q_weights(layout: SectorKronLayout, q: float, hi_lens=None,
-                    dtype=np.float32):
+                    dtype=np.float32, mesh=None):
     """Host-side per-group weight vectors of S^z_q:
-    [(cos_l, cos_m, cos_h, sin_l, sin_m, sin_h), ...] (numpy). hi_lens pads
-    the hi vectors to the leaves' hi length."""
+    [(cos_l, cos_m, cos_h, sin_l, sin_m, sin_h), ...] (numpy). hi_lens (the
+    leaves' hi lengths) pads the hi vectors for sharded-form leaves; with
+    `mesh` they are the rows this process holds."""
     sz = _sz_tables(layout)
     L1, L2, L3 = layout.splits
     s = 1.0 / np.sqrt(layout.L)
@@ -74,8 +98,8 @@ def bv_sz_q_weights(layout: SectorKronLayout, q: float, hi_lens=None,
 
         def wvec(p, trig):
             v = sz[p][kp[p]] @ (s * trig(q * sites[p]))
-            if p == 2 and v.shape[0] != hi_len:
-                v = np.pad(v, (0, hi_len - v.shape[0]))
+            if p == 2:
+                v = _hi_rows(v, hi_len, mesh)
             return np.asarray(v, dtype)
 
         out.append(tuple(wvec(p, np.cos) for p in range(3))
@@ -105,7 +129,7 @@ def bv_sz_q_apply(x, weights):
             ileaf = im_in.leaves[gi]
             out_r.append(leaf * wr - ileaf * wi)
             out_i.append(ileaf * wr + leaf * wi)
-    return BlockVec(out_r), BlockVec(out_i)
+    return re_in.like(out_r), re_in.like(out_i)
 
 
 def bv_sz_q(x, layout: SectorKronLayout, q: float):
@@ -116,7 +140,8 @@ def bv_sz_q(x, layout: SectorKronLayout, q: float):
     re0 = x[0] if isinstance(x, tuple) else x
     hi_lens = [l.shape[0] for l in re0.leaves]
     dtype = np.float64 if re0.dtype == torch.float64 else np.float32
-    return bv_sz_q_apply(x, bv_sz_q_weights(layout, q, hi_lens, dtype=dtype))
+    return bv_sz_q_apply(x, bv_sz_q_weights(layout, q, hi_lens, dtype=dtype,
+                                            mesh=re0.mesh))
 
 
 def bv_probs(x) -> list:
@@ -146,11 +171,13 @@ def _site_map(layout: SectorKronLayout) -> list:
     return out
 
 
-def bv_site_moments(w_leaves, layout: SectorKronLayout) -> torch.Tensor:
+def bv_site_moments(w_leaves, layout: SectorKronLayout, mesh=None
+                    ) -> torch.Tensor:
     """[L] vector m_i = sum_states w(state) sz_i(state) from per-group
     weight leaves, in their dtype and on their device: one pass computes
     the per-axis marginals of each leaf and contracts them with the Sz
-    tables of all L sites."""
+    tables of all L sites. With `mesh` the leaves are the process's rows
+    of a sharded state, and the [L] sums end in one all-reduce."""
     sz = _sz_tables(layout)
     L1, L2, L3 = layout.splits
     w0 = w_leaves[0]
@@ -161,17 +188,19 @@ def bv_site_moments(w_leaves, layout: SectorKronLayout) -> torch.Tensor:
         margs = (w.sum(dim=(0, 1)), w.sum(dim=(0, 2)), w.sum(dim=(1, 2)))
         for p in range(3):
             S = sz[p][kp[p]]
-            if p == 2 and S.shape[0] != w.shape[0]:
-                S = np.pad(S, ((0, w.shape[0] - S.shape[0]), (0, 0)))
+            if p == 2:
+                S = _hi_rows(S, w.shape[0], mesh)
             parts[p] = parts[p] + margs[p] @ torch.as_tensor(
                 S, dtype=dtype, device=dev)
-    return torch.cat(parts)
+    out = torch.cat(parts)
+    return out if mesh is None else mesh.all_reduce_sum(out)
 
 
 def magnetization_per_site_kron(x, layout: SectorKronLayout) -> torch.Tensor:
     """<Sz_i> per site of a BlockVec or an (re, im) BlockVec pair, in one
-    pass (ref src/Observables.jl:14-36)."""
-    return bv_site_moments(bv_probs(x), layout)
+    pass (ref src/Observables.jl:14-36). A sharded state (one with a mesh)
+    is not gathered."""
+    return bv_site_moments(bv_probs(x), layout, _mesh_of(x))
 
 
 def szsz_matrix_kron(x, layout: SectorKronLayout):
@@ -180,12 +209,16 @@ def szsz_matrix_kron(x, layout: SectorKronLayout):
     1-D axis marginal of |psi|^2 against sz_i sz_j (the diagonal included:
     sz_i^2 = 1/4); cross-part pairs contract the 2-D marginal against
     sz_i x sz_j. The only O(N) work is the marginal sums (replaces the
-    O(N L^2) loop of src/Observables.jl:66-72)."""
+    O(N L^2) loop of src/Observables.jl:66-72). A sharded state (one with
+    a mesh) is not gathered: each process sums the marginals of its rows
+    against its rows of the hi Sz table, and the (L + 1, L) accumulator is
+    all-reduced once."""
     sz = _sz_tables(layout)
     lens = layout.splits
     L = layout.L
     off = (0, lens[0], lens[0] + lens[1])
     probs = bv_probs(x)
+    mesh = _mesh_of(x)
     dtype, dev = probs[0].dtype, probs[0].device
     szsz = torch.zeros((L, L), dtype=dtype, device=dev)
     si = torch.zeros(L, dtype=dtype, device=dev)
@@ -195,8 +228,9 @@ def szsz_matrix_kron(x, layout: SectorKronLayout):
 
     for w, (k_h, k_m, k_l, *_r) in zip(probs, layout.groups):
         kp = (k_l, k_m, k_h)
-        S = [torch.as_tensor(sz[p][kp[p]], dtype=dtype, device=dev)
-             for p in range(3)]
+        S = [torch.as_tensor(
+            sz[p][kp[p]] if p < 2 else _hi_rows(sz[2][k_h], w.shape[0], mesh),
+            dtype=dtype, device=dev) for p in range(3)]
         M_lm, M_hl, M_hm = w.sum(dim=0), w.sum(dim=1), w.sum(dim=2)
         m1 = (M_lm.sum(dim=0), M_lm.sum(dim=1), M_hm.sum(dim=1))
         for p in range(3):
@@ -208,6 +242,9 @@ def szsz_matrix_kron(x, layout: SectorKronLayout):
             blk = S[pa].T @ M2 @ S[pb]
             szsz[block(pa), block(pb)] += blk
             szsz[block(pb), block(pa)] += blk.T
+    if mesh is not None:
+        both = mesh.all_reduce_sum(torch.cat([szsz, si[None]]))
+        szsz, si = both[:L], both[L]
     return szsz, si
 
 
@@ -241,8 +278,43 @@ def bv_apply_sz(x: BlockVec, layout: SectorKronLayout, site: int) -> BlockVec:
     for leaf, (k_h, k_m, k_l, *_r) in zip(x.leaves, layout.groups):
         kp = (k_l, k_m, k_h)
         v = sz[p][kp[p]][:, rel]
-        if p == 2 and v.shape[0] != leaf.shape[0]:
-            v = np.pad(v, (0, leaf.shape[0] - v.shape[0]))
+        if p == 2:
+            v = _hi_rows(v, leaf.shape[0], x.mesh)
         leaves.append(leaf * torch.as_tensor(
             v, dtype=leaf.dtype, device=leaf.device).reshape(shape))
-    return BlockVec(leaves)
+    return x.like(leaves)
+
+
+def _as_sharded(x, spec, mesh):
+    """A flat sharded vector, a sharded-form BlockVec or an (re, im) pair
+    of them, as BlockVec(s) on `mesh`."""
+    if isinstance(x, tuple):
+        return tuple(_as_sharded(p, spec, mesh) for p in x)
+    if isinstance(x, BlockVec):
+        return BlockVec(x.leaves, mesh)
+    from .parallel.sharded_kron_scaling import flat_to_sharded_leaves
+
+    return BlockVec(flat_to_sharded_leaves(x, spec, mesh), mesh)
+
+
+def szsz_matrix_kron_sharded(x, spec, mesh, axis_name: str = "rows"):
+    """(SzSz[i, j], S_i) from a block-distributed kron state
+    (parallel/sharded_kron_scaling layout) without gathering it. `x` is a
+    flat sharded vector (the [n_local * local_len] blocks of this process's
+    shards), a BlockVec in sharded form, or an (re, im) pair of such
+    BlockVecs (the sharded evolution's state). Every marginal is linear in
+    |psi|^2, so each process contracts the marginals of its rows with its
+    rows of the hi Sz tables and one all-reduce of the (L + 1, L)
+    accumulator finishes: O(L^2) numbers per measurement, whatever N.
+    `axis_name` is kept from the JAX signature."""
+    del axis_name
+    return szsz_matrix_kron(_as_sharded(x, spec, mesh), spec.layout)
+
+
+def magnetization_per_site_kron_sharded(x, spec, mesh,
+                                        axis_name: str = "rows"):
+    """<Sz_i> from a block-distributed kron state (no gather): the 1-D
+    marginals alone, and an all-reduce of L numbers."""
+    del axis_name
+    return magnetization_per_site_kron(_as_sharded(x, spec, mesh),
+                                       spec.layout)

@@ -8,6 +8,14 @@ slice adds. The W_hi contraction (and any mid|hi term that is not fused)
 is computed in plain torch as the kernel's SEED; the tail groups (too small
 to fuse) run the plain blocks-mode apply. This is the JAX package's design.
 
+The `crossw` variant serves the sharded apply
+(parallel/sharded_kron_scaling.py), where a launch covers one shard's LOCAL
+hi block [b, cmp, clp]: the mid|hi source rows live on other shards, so
+each term arrives as a WINDOW [b, cmp_s, clp], the source rows already
+shifted onto the output's rows and zero elsewhere, and the kernel adds
+`val * win[h, ra0 + m - ca0, l]` for every mid run that holds m: no hi
+shift, no mask.
+
 The kernel is CUDA C++ (`csrc/kron_group.cu`, with the tile code it shares
 with K2 in `csrc/kron_tile.cuh`), built with nvcc for sm_90a on first use
 into `build/spindynamics_tpu_torch/` of the checkout (`ops/cuda_build.py`)
@@ -179,15 +187,27 @@ def fused_group_set(layout: SectorKronLayout, top_k: int) -> frozenset:
     return frozenset(gi for _, gi in sorted(sizes, reverse=True)[:top_k])
 
 
-def fused_group_tables(layout: SectorKronLayout, dtype, device, memo=None):
+def fused_group_tables(layout: SectorKronLayout, dtype, device, memo=None,
+                       hi_pad=None):
     """Per-group kernel tables as tensors: [{"D1", "D2", "D3", "W_lo",
-    "W_mid_T": tensor | None, "A": [tensor per lo|mid cross term]}]."""
+    "W_mid_T": tensor | None, "A": [tensor per lo|mid cross term]}].
+    `hi_pad` (per group) zero-pads the hi rows of D2 and D3 to that length:
+    the sharded apply hands each shard its rows of the padded table."""
     memo = {} if memo is None else memo
 
-    def conv(x):
-        return None if x is None else _as_tensor(x, dtype, device, memo)
+    def conv(x, rows=None):
+        if x is None:
+            return None
+        if rows is not None and rows != x.shape[0]:
+            # a padded copy is a temporary: keep it out of the id-keyed memo
+            return torch.as_tensor(
+                np.pad(x, ((0, rows - x.shape[0]), (0, 0))), dtype=dtype,
+                device=device)
+        return _as_tensor(x, dtype, device, memo)
 
-    return [{"D1": conv(p.D1), "D2": conv(p.D2), "D3": conv(p.D3),
+    return [{"D1": conv(p.D1),
+             "D2": conv(p.D2, hi_pad and hi_pad[p.gi]),
+             "D3": conv(p.D3, hi_pad and hi_pad[p.gi]),
              "W_lo": conv(p.W_lo), "W_mid_T": conv(p.W_mid_T),
              "A": [conv(c[5]) for c in p.cross]}
             for p in fused_group_plans(layout)]
@@ -197,7 +217,8 @@ def fused_group_tables(layout: SectorKronLayout, dtype, device, memo=None):
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_MAX_CROSS, _MAX_CROSSH, _MAX_MIDS = 16, 8, 4  # csrc/kron_tile.cuh KG_MAX_*
+# csrc/kron_tile.cuh KG_MAX_*
+_MAX_CROSS, _MAX_CROSSH, _MAX_CROSSW, _MAX_MIDS = 16, 8, 8, 4
 _TILE_M, _TILE_L = 8, 128  # K1 needs cmp % 8 == 0 and clp % 128 == 0
 # KgDesc.state_type (csrc/kron_tile.cuh KG_STATE_*) per state dtype
 _STATE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -223,6 +244,12 @@ class _KgCrossH(ctypes.Structure):
                 ("mids", _KgMid * _MAX_MIDS)]
 
 
+class _KgCrossW(ctypes.Structure):
+    _fields_ = [("win", ctypes.c_void_p),
+                ("cmp_s", ctypes.c_int), ("n_mids", ctypes.c_int),
+                ("mids", _KgMid * _MAX_MIDS)]
+
+
 class _KgDesc(ctypes.Structure):
     _fields_ = [("out", ctypes.c_void_p), ("T", ctypes.c_void_p),
                 ("seed", ctypes.c_void_p), ("D1", ctypes.c_void_p),
@@ -231,9 +258,10 @@ class _KgDesc(ctypes.Structure):
                 ("ch", ctypes.c_int), ("cmp", ctypes.c_int),
                 ("clp", ctypes.c_int),
                 ("n_cross", ctypes.c_int), ("n_crossh", ctypes.c_int),
-                ("state_type", ctypes.c_int),
+                ("state_type", ctypes.c_int), ("n_crossw", ctypes.c_int),
                 ("cross", _KgCross * _MAX_CROSS),
-                ("crossh", _KgCrossH * _MAX_CROSSH)]
+                ("crossh", _KgCrossH * _MAX_CROSSH),
+                ("crossw", _KgCrossW * _MAX_CROSSW)]
 
 
 _SRC = CSRC / "kron_group.cu"
@@ -241,6 +269,8 @@ _HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
 # launches per state dtype: each instance of the kernel has its own count
 _LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
+# of those, the launches of the crossw variant (a launch that reads windows)
+_CROSSW_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
 
 
 def build_kernel() -> dict:
@@ -263,44 +293,60 @@ def build_kernel() -> dict:
     return info
 
 
-def kernel_launch_count(dtype=None) -> int:
+def kernel_launch_count(dtype=None, crossw: bool = False) -> int:
     """Number of K1 launches since import (or the last reset): of the
     instance for states of `dtype` (torch.float32 or torch.bfloat16), or of
-    both when None."""
-    return sum(_LAUNCHES.values()) if dtype is None else _LAUNCHES[dtype]
+    both when None. `crossw=True` counts only the launches of the crossw
+    variant (those that read windows)."""
+    n = _CROSSW_LAUNCHES if crossw else _LAUNCHES
+    return sum(n.values()) if dtype is None else n[dtype]
 
 
 def reset_kernel_launch_count() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    for n in (_LAUNCHES, _CROSSW_LAUNCHES):
+        for k in n:
+            n[k] = 0
 
 
 class _GroupCall:
     """Everything one fused group's kernel call needs besides the state:
     static offsets, the group's table tensors, and (on CUDA) the cached
-    ctypes descriptor whose table pointers never change."""
+    ctypes descriptor whose table pointers never change.
 
-    def __init__(self, layout, plan, gt, fuse_crossh):
+    The sharded apply makes one call per (group, shard): `rows` is the
+    shard's local hi block size b (every group tensor of the launch then
+    has b hi rows, and gt's D2/D3 are the shard's rows of the tables), and
+    `windowed` delivers the mid|hi terms as windows (`crossw`) instead of
+    shifted reads of the source groups (`crossh`)."""
+
+    def __init__(self, layout, plan, gt, fuse_crossh, rows=None,
+                 windowed=False):
         k_h, _, _, ch, _, _, cmp, clp = layout.groups[plan.gi]
         self.gi = plan.gi
-        self.shape = (ch, cmp, clp)
+        self.shape = (ch if rows is None else rows, cmp, clp)
         self.D1, self.D2, self.D3 = gt["D1"], gt["D2"], gt["D3"]
         self.W_lo, self.W_mid_T = gt["W_lo"], gt["W_mid_T"]
         self.A = gt["A"]
         self.cross = [c[:5] for c in plan.cross]  # (g_src, r0, c0, ln, val)
         fused_h = fuse_crossh and plan.crossh_fusable
-        self.crossh = list(plan.crossh) if fused_h else []
+        self.crossh = list(plan.crossh) if fused_h and not windowed else []
+        # crossw: per window (cmp_s, ((ra0, ca0, lna, val), ...))
+        self.crossw = ([(layout.groups[c[0]][6], c[4]) for c in plan.crossh]
+                       if fused_h and windowed else [])
         # the seed carries W_hi (and the mid|hi terms when not fused)
         self.has_seed = (k_h in layout.W[2]) if fused_h else True
         self.seed_terms = "hi" if fused_h else "hi,crossh"
         self.unsupported = plan.unsupported
 
-        def shape_of(g):
+        def shape_of(g, hi=None):
             (_, _, _, chs, _, _, cmps, clps) = layout.groups[g]
-            return (chs, cmps, clps)
+            return (chs if hi is None else hi, cmps, clps)
 
-        self.cross_shapes = [shape_of(c[0]) for c in self.cross]
+        # lo|mid sources share the hi axis (and so the shard's block size)
+        self.cross_shapes = [shape_of(c[0], rows) for c in self.cross]
         self.crossh_shapes = [shape_of(c[0]) for c in self.crossh]
+        self.crossw_shapes = [(self.shape[0], cmps, clp)
+                              for (cmps, _) in self.crossw]
         self._desc = None
         self._desc_device = None
         # K2's descriptor (ops/cheb_term.py): a copy of this one plus the
@@ -324,7 +370,9 @@ class _GroupCall:
             raise ValueError(f"group {self.gi}: cross source shapes "
                              "do not match the kernel's indexing")
         if (len(self.cross) > _MAX_CROSS or len(self.crossh) > _MAX_CROSSH
-                or any(len(c[4]) > _MAX_MIDS for c in self.crossh)):
+                or len(self.crossw) > _MAX_CROSSW
+                or any(len(c[4]) > _MAX_MIDS for c in self.crossh)
+                or any(len(c[1]) > _MAX_MIDS for c in self.crossw)):
             raise ValueError(f"group {self.gi} has more cross terms than K1 "
                              "takes (kron_tile.cuh KG_MAX_*)")
         d = _KgDesc()
@@ -348,6 +396,13 @@ class _GroupCall:
             e = d.crossh[i]
             e.ch_s, e.cmp_s = chs, cmps
             e.rb0, e.cb0, e.lnb, e.n_mids = rb0, cb0, lnb, len(mids)
+            for k, (ra0, ca0, lna, val) in enumerate(mids):
+                e.mids[k].ra0, e.mids[k].ca0 = ra0, ca0
+                e.mids[k].lna, e.mids[k].val = lna, val
+        d.n_crossw = len(self.crossw)
+        for i, (cmps, mids) in enumerate(self.crossw):
+            e = d.crossw[i]
+            e.cmp_s, e.n_mids = cmps, len(mids)
             for k, (ra0, ca0, lna, val) in enumerate(mids):
                 e.mids[k].ra0, e.mids[k].ca0 = ra0, ca0
                 e.mids[k].lna, e.mids[k].val = lna, val
@@ -380,19 +435,26 @@ def _check_tensor(x, shape, device, what, kernel="K1", dtype=torch.float32):
                          "aligned")
 
 
-def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
+def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall, wins=(),
+                     out=None):
     """One fused group: K1 on a CUDA tensor, its plain version on a CPU
     tensor. T [ch, cmp, clp], float32 or bfloat16; seed same shape and
     dtype or None; srcs / srcsh the source groups of the lo|mid / mid|hi
-    cross terms, in `call`'s order and T's dtype. Returns T's dtype."""
+    cross terms, in `call`'s order and T's dtype; wins the windows of a
+    windowed call (the crossw variant), [ch, cmp_s, clp] each, T's dtype.
+    `out` (T's shape and dtype, e.g. one shard's rows of a whole leaf) is
+    written when given. Returns the output, in T's dtype."""
     if T.device.type == "cpu":
-        return kron_group_apply_reference(T, seed, srcs, srcsh, call)
+        res = kron_group_apply_reference(T, seed, srcs, srcsh, call, wins)
+        return res if out is None else out.copy_(res)
     if T.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors; got {T.device}")
     dev = T.device
-    if len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh):
+    if (len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh)
+            or len(wins) != len(call.crossw)):
         raise ValueError(f"group {call.gi}: expected {len(call.cross)} + "
-                         f"{len(call.crossh)} source groups")
+                         f"{len(call.crossh)} source groups and "
+                         f"{len(call.crossw)} windows")
     state_type = _state_type(T)
     _check_tensor(T, call.shape, dev, "state", dtype=T.dtype)
     if seed is not None:
@@ -401,17 +463,24 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
         _check_tensor(S, shp, dev, "lo|mid source", dtype=T.dtype)
     for S, shp in zip(srcsh, call.crossh_shapes):
         _check_tensor(S, shp, dev, "mid|hi source", dtype=T.dtype)
+    for S, shp in zip(wins, call.crossw_shapes):
+        _check_tensor(S, shp, dev, "mid|hi window", dtype=T.dtype)
+    if out is None:
+        out = torch.empty_like(T)
+    else:
+        _check_tensor(out, call.shape, dev, "output", dtype=T.dtype)
     if _LIB is None:
         build_kernel()
     d = call.descriptor(dev)
     d.state_type = state_type
-    out = torch.empty_like(T)
     d.out, d.T = out.data_ptr(), T.data_ptr()
     d.seed = None if seed is None else seed.data_ptr()
     for i, S in enumerate(srcs):
         d.cross[i].src = S.data_ptr()
     for i, S in enumerate(srcsh):
         d.crossh[i].src = S.data_ptr()
+    for i, S in enumerate(wins):
+        d.crossw[i].win = S.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _LIB.kg_launch(ctypes.byref(d), ctypes.c_void_p(stream))
@@ -419,10 +488,13 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall):
         raise RuntimeError(f"K1 launch failed for group {call.gi}: "
                            f"cudaError {err}")
     _LAUNCHES[T.dtype] += 1
+    if wins:
+        _CROSSW_LAUNCHES[T.dtype] += 1
     return out
 
 
-def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall):
+def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall,
+                               wins=()):
     """Plain torch version of K1 (same arguments, same output), in the
     state's dtype (float32 or float64). bfloat16 inputs are lifted to
     float32, summed there and rounded once, as the kernel does; the value
@@ -431,7 +503,7 @@ def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall):
         return kron_group_apply_reference(
             _lift(T), None if seed is None else _lift(seed),
             [_lift(S) for S in srcs], [_lift(S) for S in srcsh],
-            call).to(torch.bfloat16)
+            call, [_lift(S) for S in wins]).to(torch.bfloat16)
     dt = T.dtype
     out = torch.zeros_like(T) if seed is None else seed.clone()
     d = None
@@ -452,6 +524,9 @@ def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall):
         for (ra0, ca0, lna, val) in mids:
             out[cb0:cb0 + lnb, ca0:ca0 + lna] += (
                 val * S[rb0:rb0 + lnb, ra0:ra0 + lna])
+    for W, (_, mids) in zip(wins, call.crossw):
+        for (ra0, ca0, lna, val) in mids:
+            out[:, ca0:ca0 + lna] += val * W[:, ra0:ra0 + lna]
     return out
 
 
@@ -610,7 +685,14 @@ class KronHamiltonian(nn.Module):
     a CPU module). forward(bv, s=None, bv0=None) returns H bv (+ s bv0: the
     Lanczos axpy, folded into the kernel seed when fused), in bv's dtype:
     a float32 module also takes bfloat16 states (float32 sums, one rounding
-    per output; K1's bfloat16 instance when fused)."""
+    per output; K1's bfloat16 instance when fused). forward(bv, groups=...)
+    computes those groups' outputs alone (None elsewhere) through the plain
+    apply: the bucketed Ritz finalize of the ground-state solve asks for
+    H psi a few groups at a time. `shard` and `to_mesh` are what the
+    sharded module (parallel.ShardedKronHamiltonian) answers with its spec
+    and mesh: no sharding here."""
+
+    shard = None  # the `shard=` argument of the BlockVec state constructors
 
     def __init__(self, layout: SectorKronLayout, dtype=torch.float32,
                  device=None, fused: bool = True, top_k: int | None = None,
@@ -664,9 +746,17 @@ class KronHamiltonian(nn.Module):
         not fused."""
         return self._state()[1]
 
-    def forward(self, bv: BlockVec, s=None, bv0: BlockVec | None = None
-                ) -> BlockVec:
+    def to_mesh(self, bv: BlockVec) -> BlockVec:
+        return bv
+
+    def forward(self, bv: BlockVec, s=None, bv0: BlockVec | None = None,
+                groups=None) -> BlockVec:
         tables, calls = self._state()
+        if groups is not None:
+            out = apply_H_sector_kron(bv.leaves, None, self.layout, tables,
+                                      group_filter=groups)
+            return BlockVec([o if o is None else o.to(bv.dtype)
+                             for o in out])
         if self.fused:
             axpy = None if s is None else (s, list(bv0.leaves))
             return BlockVec(apply_H_sector_kron_fused(

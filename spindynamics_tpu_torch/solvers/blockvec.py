@@ -13,17 +13,24 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["BlockVec", "bv_zeros_like", "bv_random", "bv_basis_state",
+__all__ = ["BlockVec", "bv_reduce", "bv_zeros_like", "bv_random", "bv_basis_state",
            "bv_matvec_fn"]
 
 
 class BlockVec:
-    """List-of-tensors state with leaf-wise vector-space operators."""
+    """List-of-tensors state with leaf-wise vector-space operators.
 
-    __slots__ = ("leaves",)
+    `mesh` (optional) marks a row-sharded state (parallel/mesh.py): the
+    leaves hold the rows of this process's shards, every operator hands the
+    mesh on to its result, and every reduction to a scalar ends in
+    `bv_reduce`, the mesh's sum over processes. A BlockVec without a mesh
+    behaves as it always did."""
 
-    def __init__(self, leaves):
+    __slots__ = ("leaves", "mesh")
+
+    def __init__(self, leaves, mesh=None):
         self.leaves = list(leaves)
+        self.mesh = mesh
 
     @property
     def dtype(self):
@@ -33,13 +40,24 @@ class BlockVec:
     def device(self):
         return self.leaves[0].device
 
+    def like(self, leaves):
+        """A BlockVec of `leaves` on this one's mesh."""
+        return BlockVec(leaves, self.mesh)
+
+    def map(self, f):
+        """f applied to every leaf, on this one's mesh."""
+        return BlockVec([f(l) for l in self.leaves], self.mesh)
+
     def astype(self, dtype):
-        return BlockVec([l.to(dtype) for l in self.leaves])
+        return self.map(lambda l: l.to(dtype))
 
     def _binop(self, other, f):
         if isinstance(other, BlockVec):
-            return BlockVec([f(a, b) for a, b in zip(self.leaves, other.leaves)])
-        return BlockVec([f(a, other) for a in self.leaves])
+            return BlockVec([f(a, b) for a, b in zip(self.leaves,
+                                                     other.leaves)],
+                            self.mesh if self.mesh is not None
+                            else other.mesh)
+        return self.map(lambda a: f(a, other))
 
     def __add__(self, other):
         return self._binop(other, lambda a, b: a + b)
@@ -63,7 +81,18 @@ class BlockVec:
         return self._binop(other, lambda a, b: a / _cast(b, a.dtype))
 
     def __neg__(self):
-        return BlockVec([-a for a in self.leaves])
+        return self.map(lambda a: -a)
+
+
+def bv_reduce(x, *bvs):
+    """Finish a reduction over BlockVec leaves: `x` (a tensor summed over
+    this process's rows) summed over the processes of the first mesh found
+    among `bvs`; `x` itself when none has one."""
+    for bv in bvs:
+        mesh = getattr(bv, "mesh", None)
+        if mesh is not None:
+            return mesh.all_reduce_sum(x)
+    return x
 
 
 def _cast(s, dtype):
@@ -73,37 +102,56 @@ def _cast(s, dtype):
 
 def bv_zeros_like(x):
     if isinstance(x, BlockVec):
-        return BlockVec([torch.zeros_like(l) for l in x.leaves])
+        return x.map(torch.zeros_like)
     return torch.zeros_like(x)
 
 
+def _shard_rows(x, gi, shard):
+    """x's rows that `shard` = (spec, mesh) gives this process: the hi axis
+    zero-padded to the padded length, cut to the mesh's rows."""
+    if shard is None:
+        return x
+    spec, mesh = shard
+    x = torch.nn.functional.pad(
+        x, (0, 0, 0, 0, 0, spec.ch_pad[gi] - x.shape[0]))
+    rows = x[mesh.row_slice(spec.b[gi])]
+    # a rank's part is copied, so that the whole group can be freed
+    return rows if rows.shape[0] == x.shape[0] else rows.clone()
+
+
 def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
-              device=None) -> BlockVec:
+              device=None, shard=None) -> BlockVec:
     """Random normal BlockVec over a SectorKronLayout, zero in tile-pad slots
     (the pad slots are an invariant null subspace of the apply, so zeroing
     them once keeps them exactly zero). The numbers are drawn on the
     generator's device, then moved to `device` (default: the card, as for
     every state constructor, since a state decides where a solver runs; pass
     device="cpu" for a CPU state). bfloat16 leaves are float32 draws,
-    rounded."""
+    rounded. `shard=(spec, mesh)` returns the sharded form of the same
+    draw on that mesh: each group is drawn whole, in the unsharded order,
+    and cut to this process's rows before it is moved, so every rank of a
+    ProcessMesh draws the same state and keeps its part."""
     device = resolve_device(device)
     draw = torch.float32 if dtype == torch.bfloat16 else dtype
     leaves = []
-    for (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in layout.groups:
-        x = torch.randn((ch, cmp, clp), generator=generator, dtype=draw,
-                        device=generator.device).to(device=device,
-                                                    dtype=dtype)
+    for gi, (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in enumerate(
+            layout.groups):
+        x = _shard_rows(
+            torch.randn((ch, cmp, clp), generator=generator, dtype=draw,
+                        device=generator.device), gi, shard
+        ).to(device=device, dtype=dtype)
         if cmp != cm or clp != cl:
             x[:, cm:, :] = 0
             x[:, :, cl:] = 0
         leaves.append(x)
-    return BlockVec(leaves)
+    return BlockVec(leaves, None if shard is None else shard[1])
 
 
 def bv_basis_state(layout, bitstring: int, dtype=torch.float32,
-                   device=None) -> BlockVec:
+                   device=None, shard=None) -> BlockVec:
     """One-hot |bitstring> as a BlockVec on `device` (default: the card;
-    pass device="cpu" for a CPU state)."""
+    pass device="cpu" for a CPU state). `shard=(spec, mesh)` makes the
+    sharded form on that mesh directly (this process's rows only)."""
     from .. import basis as basis_mod
     from ..ops.sector_kron import kron_part_perms
 
@@ -127,14 +175,19 @@ def bv_basis_state(layout, bitstring: int, dtype=torch.float32,
                          f"nup={layout.nup}")
     device = resolve_device(device)
     leaves = []
-    for (gkh, gkm, gkl, ch, cm, cl, cmp, clp) in layout.groups:
-        leaf = torch.zeros((ch, cmp, clp), dtype=dtype, device=device)
-        if (gkh, gkm) == (k_h, k_m):
-            leaf[basis_mod.rank_state(hi, L3, k_h),
-                 basis_mod.rank_state(mid, L2, k_m),
+    for gi, (gkh, gkm, gkl, ch, cm, cl, cmp, clp) in enumerate(
+            layout.groups):
+        rows = range(ch)
+        if shard is not None:
+            spec, mesh = shard
+            rows = range(spec.ch_pad[gi])[mesh.row_slice(spec.b[gi])]
+        leaf = torch.zeros((len(rows), cmp, clp), dtype=dtype, device=device)
+        h = basis_mod.rank_state(hi, L3, k_h)  # the state's hi rank
+        if (gkh, gkm) == (k_h, k_m) and h in rows:
+            leaf[h - rows[0], basis_mod.rank_state(mid, L2, k_m),
                  basis_mod.rank_state(lo, L1, k_l)] = 1
         leaves.append(leaf)
-    return BlockVec(leaves)
+    return BlockVec(leaves, None if shard is None else shard[1])
 
 
 def bv_matvec_fn(layout, tables=None):

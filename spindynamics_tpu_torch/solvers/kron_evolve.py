@@ -17,8 +17,14 @@ of every stored recurrence term: the terms are stored bfloat16 through the
 bfloat16 instances of K1 and K2, every combine and the accumulator stay
 float32, and the accumulator is rounded once per step. Accuracy class: one
 rounding of the state per stored term, so observables are good to about
-1e-2 absolute over tens of steps. Sharded (`mesh=`) runs wait for the
-multi-GPU slice (ROADMAP Queue 1, item 13).
+1e-2 absolute over tens of steps.
+
+With `mesh=` (parallel/mesh.py) the entry points run on row-sharded
+BlockVecs through the block-distributed apply
+(parallel/sharded_kron_scaling.py): K1 on each shard's local block, every
+dot finished by the mesh's all-reduce, observables summed per shard. The
+Chebyshev terms then run the plain recurrence: the JAX package's sharded
+matvec sets no fused-term route either, so K2 does not run on a mesh.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from ..ops.kron_group import KronHamiltonian
 from ..ops.sector_kron import SectorKronLayout, _lift, default_fused_topk
 from ..utils.compensated import vdot2
 from ..utils.device import resolve_device
-from .blockvec import BlockVec, bv_basis_state, bv_random, bv_zeros_like
+from .blockvec import (BlockVec, bv_basis_state, bv_random, bv_reduce,
+                       bv_zeros_like)
 
 __all__ = [
     "KronPlanes",
@@ -53,13 +60,6 @@ __all__ = [
 _TINY32 = float(torch.finfo(torch.float32).tiny)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded kron evolution) is not ported yet: ROADMAP "
-            "Queue 1, item 13 (multi-GPU)")
-
-
 def _check_state_dtype(dtype):
     if dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise ValueError(f"state dtype must be float32, bfloat16 or "
@@ -69,6 +69,9 @@ def _check_state_dtype(dtype):
 class KronPlanes(nn.Module):
     """(re, im) -> (H re, H im) on BlockVec planes (H is real).
 
+    H is a KronHamiltonian, or a ShardedKronHamiltonian for row-sharded
+    planes (then with cheb_fused=False: K2 takes whole groups, not a
+    shard's local block).
     Routing is fixed at construction, in fields: the applies are the
     KronHamiltonian's (`H.fused`: K1), and `cheb_fused` (default H.fused)
     sends every Chebyshev term k >= 2 through K2 for the `cheb_top_k`
@@ -112,13 +115,15 @@ def kron_planes_matvec_fn(layout: SectorKronLayout, fused: bool = True,
 
 def _bv_vdot(x: BlockVec, y: BlockVec):
     """Compensated sum of per-leaf real dots (f32 at N ~ 1e8 needs it);
-    bfloat16 leaves are read as float32."""
+    bfloat16 leaves are read as float32. Sharded states: summed over the
+    mesh's processes."""
     def _d(a, b):
         if a.dtype == torch.bfloat16:
             a, b = a.float(), b.float()
         return vdot2(a, b)
 
-    return sum(_d(a, b) for a, b in zip(x.leaves, y.leaves))
+    return bv_reduce(sum(_d(a, b) for a, b in zip(x.leaves, y.leaves)),
+                     x, y)
 
 
 def pair_dot(x, y):
@@ -196,9 +201,9 @@ def _plain_term(planes, p_prev, p_curr, acc, c, ab):
     sdt = p_curr[0].dtype
     nr, ni = planes(p_curr)
     p_next = tuple(
-        BlockVec([(_lift(((_lift(h) - b * _lift(x)) * a_inv).to(sdt)) * 2.0
-                   - _lift(pv)).to(sdt)
-                  for h, x, pv in zip(H.leaves, P.leaves, V.leaves)])
+        P.like([(_lift(((_lift(h) - b * _lift(x)) * a_inv).to(sdt)) * 2.0
+                 - _lift(pv)).to(sdt)
+                for h, x, pv in zip(H.leaves, P.leaves, V.leaves)])
         for H, P, V in ((nr, p_curr[0], p_prev[0]),
                         (ni, p_curr[1], p_prev[1])))
     _acc_add_(acc, p_next, c)
@@ -228,8 +233,8 @@ def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
 
     def mvr(p):
         hr, hi = planes(p)
-        return tuple(BlockVec([((_lift(h) - b * _lift(x)) * a_inv).to(sdt)
-                               for h, x in zip(H.leaves, P.leaves)])
+        return tuple(P.like([((_lift(h) - b * _lift(x)) * a_inv).to(sdt)
+                             for h, x in zip(H.leaves, P.leaves)])
                      for H, P in ((hr, p[0]), (hi, p[1])))
 
     def f32(x):
@@ -238,8 +243,10 @@ def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
     phi_prev = pair
     c0r, c0i = c[0]
     pr, pi = phi_prev[0].leaves, phi_prev[1].leaves
-    acc = (BlockVec([f32(r) * c0r - f32(i) * c0i for r, i in zip(pr, pi)]),
-           BlockVec([f32(r) * c0i + f32(i) * c0r for r, i in zip(pr, pi)]))
+    acc = (pair[0].like([f32(r) * c0r - f32(i) * c0i
+                         for r, i in zip(pr, pi)]),
+           pair[0].like([f32(r) * c0i + f32(i) * c0r
+                         for r, i in zip(pr, pi)]))
     phi_curr = mvr(phi_prev)
     _acc_add_(acc, phi_curr, c[1])
     if n > 2:
@@ -409,7 +416,8 @@ def kron_energy_bounds(layout: SectorKronLayout, planes_or_mv,
     """(Emin, Emax) of a bounds_m-step Lanczos run, padded outward by
     `safety` of the half-width (Chebyshev diverges outside [-1, 1]; ref
     src/Lanczos.jl:238-254). The start is `v0` or a random float32 BlockVec
-    from `generator` (default: seed 7 on the apply's device)."""
+    from `generator` (default: seed 7 on the apply's device), in sharded
+    form on the apply's mesh when the apply is a sharded one."""
     from .lanczos import lanczos_iteration, tridiag_eigh
 
     mv = getattr(planes_or_mv, "mv", planes_or_mv)
@@ -417,7 +425,8 @@ def kron_energy_bounds(layout: SectorKronLayout, planes_or_mv,
         dev = resolve_device(getattr(mv, "device", None))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(7)
-        v0 = bv_random(layout, generator, torch.float32, dev)
+        v0 = bv_random(layout, generator, torch.float32, dev,
+                       shard=getattr(mv, "shard", None))
     fac = lanczos_iteration(mv, v0, bounds_m)
     evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
     lo, hi = float(evals.min()), float(evals.max())
@@ -425,11 +434,13 @@ def kron_energy_bounds(layout: SectorKronLayout, planes_or_mv,
     return (lo - pad, hi + pad)
 
 
-def _planes_for(layout, fused, dtype, device):
+def _planes_for(layout, fused, dtype, device, mesh=None):
     """The planes module of an entry point for states of `dtype`. A fused
     run needs float32 or bfloat16 states (K1 and K2): in float64 it raises
     on CUDA and runs the plain apply on the CPU, as runners.groundstate_kron
-    does. The module's tables are float32 for bfloat16 states."""
+    does. The module's tables are float32 for bfloat16 states. With `mesh`
+    the apply is the ShardedKronHamiltonian over it and the Chebyshev
+    terms run plain."""
     if fused and dtype not in (torch.float32, torch.bfloat16):
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1 and K2, which take "
@@ -437,6 +448,12 @@ def _planes_for(layout, fused, dtype, device):
                              "pass fused=False or float32 states")
         fused = False
     tdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    if mesh is not None:
+        from ..parallel.sharded_kron_scaling import ShardedKronHamiltonian
+
+        return KronPlanes(ShardedKronHamiltonian(
+            layout, mesh, dtype=tdt, device=device, fused=fused),
+            cheb_fused=False)
     return kron_planes_matvec_fn(layout, fused=fused, dtype=tdt,
                                  device=device)
 
@@ -465,11 +482,23 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
     returned pair in bfloat16 (half the memory of the stored terms; float32
     combines and accumulator; observables good to about 1e-2, the norm
     drift in the same class: state it per use).
-    `device` defaults to psi0's, else the card. Bounds come from a
-    bounds_m-step Lanczos run (kron_energy_bounds, `generator` or seed 7;
-    always on a float32 vector, padded by 0.05 instead of 0.02 for a
-    bfloat16 run) unless `Ebounds` is given. `observe(pair, layout)`
-    defaults to magnetization_per_site_kron. Returns (pair, obs
+    `device` defaults to psi0's, else the mesh's, else the card. Bounds
+    come from a bounds_m-step Lanczos run (kron_energy_bounds, `generator`
+    or seed 7; always on a float32 vector, padded by 0.05 instead of 0.02
+    for a bfloat16 run) unless `Ebounds` is given. `observe(pair, layout)`
+    defaults to magnetization_per_site_kron.
+
+    `mesh` runs the whole trajectory sharded: the state (psi0 plain or in
+    sharded form) lives as row-sharded leaves end to end, the apply is the
+    block-distributed one (K1 on each shard's local block), the Chebyshev
+    terms run the plain recurrence (the JAX package's sharded matvec has no
+    fused-term route either, so K2 does not run here), and the default
+    observable is magnetization_per_site_kron_sharded: O(L) numbers
+    all-reduced per measurement, no gather. A sharded bfloat16 run needs
+    no bfloat16 model (the JAX package's does, its kernel dtype following
+    the model): K1's instance follows the leaves' dtype here.
+
+    Returns (pair, obs
     [n_steps, ...] numpy, info): info has the bounds, the norm after every
     step (Chebyshev is not unitary at finite cheb_n), the norm drift, the
     bounds-solve seconds and
@@ -478,22 +507,24 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
     from ..observables_kron import magnetization_per_site_kron
     from .chebyshev import chebyshev_coefficients
 
-    _no_mesh(mesh)
     sdt = torch.float32 if state_dtype is None else state_dtype
     _check_state_dtype(sdt)
     lay = _layout_of(model, "evolve_trajectory_kron")
     device = resolve_device(
-        device, psi0 if isinstance(psi0, (BlockVec, tuple)) else None)
-    planes = _planes_for(lay, fused, sdt, device)
+        device, psi0 if isinstance(psi0, (BlockVec, tuple)) else None, mesh)
+    planes = _planes_for(lay, fused, sdt, device, mesh)
+    shard, to_mesh = planes.H.shard, planes.H.to_mesh
+
+    def place(bv):
+        return to_mesh(bv).map(lambda l: l.to(device=device, dtype=sdt))
 
     if isinstance(psi0, (int, np.integer)):
-        psi0 = bv_basis_state(lay, int(psi0), sdt, device)
+        psi0 = bv_basis_state(lay, int(psi0), sdt, device, shard=shard)
     if isinstance(psi0, BlockVec):
-        re = BlockVec([l.to(device=device, dtype=sdt) for l in psi0.leaves])
+        re = place(psi0)
         pair = (re, bv_zeros_like(re))
     else:
-        pair = tuple(BlockVec([l.to(device=device, dtype=sdt)
-                               for l in p.leaves]) for p in psi0)
+        pair = tuple(place(p) for p in psi0)
     t0 = time.perf_counter()
     if Ebounds is None:
         # a bfloat16 recurrence sees a slightly perturbed H: pad the
@@ -505,6 +536,8 @@ def evolve_trajectory_kron(model, psi0, dt: float, n_steps: int,
     c_ri, ab = _coeff_arrays(chebyshev_coefficients(dt, Ebounds[0],
                                                     Ebounds[1], cheb_n))
     if observe is None:
+        # mesh-aware: a sharded pair is summed per shard and all-reduced
+        # (magnetization_per_site_kron_sharded is this on explicit shards)
         observe = magnetization_per_site_kron
 
     obs, norms, step_s = [], [], []
@@ -537,24 +570,30 @@ def typicality_correlation_kron(model, beta: float, site_a: int, site_b: int,
 
     r0: a given (re, im) pair (copied to `device`, float32), else two
     random BlockVecs from `generator` (default: seed 0 on `device`).
-    `device` defaults to r0's, else the card. Bounds
+    `mesh` runs the whole computation sharded (the random pair, the
+    thermal state and the co-evolved states as row-sharded leaves, the Sz
+    applies cut to each shard's rows, the overlaps all-reduced; the
+    Chebyshev terms through the plain recurrence, not K2); a given r0 may
+    be plain (it is padded and cut here, so runs with and without a mesh
+    from the same r0 agree) or already in sharded form.
+    `device` defaults to r0's, else the mesh's, else the card. Bounds
     from kron_energy_bounds (`generator`, else seed 7) unless `Ebounds` is
     given. Ref capability: src/TimeEvolution/QuantumTypicality.jl:33-211."""
     from ..observables_kron import bv_apply_sz
     from .chebyshev import chebyshev_coefficients
 
-    _no_mesh(mesh)
     lay = _layout_of(model, "typicality_correlation_kron")
-    device = resolve_device(device, r0)
-    planes = _planes_for(lay, fused, torch.float32, device)
+    device = resolve_device(device, r0, mesh)
+    planes = _planes_for(lay, fused, torch.float32, device, mesh)
+    shard, to_mesh = planes.H.shard, planes.H.to_mesh
     if r0 is None:
         g = (generator if generator is not None
              else torch.Generator(device=device).manual_seed(0))
-        r0 = (bv_random(lay, g, torch.float32, device),
-              bv_random(lay, g, torch.float32, device))
+        r0 = (bv_random(lay, g, torch.float32, device, shard=shard),
+              bv_random(lay, g, torch.float32, device, shard=shard))
     else:
-        r0 = tuple(BlockVec([l.to(device=device, dtype=torch.float32)
-                             for l in p.leaves]) for p in r0)
+        r0 = tuple(to_mesh(p).map(
+            lambda l: l.to(device=device, dtype=torch.float32)) for p in r0)
     pair = _scale(r0, 1.0 / torch.sqrt(pair_norm2(r0)))
     if Ebounds is None:
         Ebounds = kron_energy_bounds(lay, planes, generator=generator)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.dtypes import real_dtype
-from .blockvec import BlockVec, bv_zeros_like
+from .blockvec import BlockVec, bv_reduce, bv_zeros_like
 
 __all__ = [
     "LanczosFactorization",
@@ -55,8 +55,8 @@ def _inner_c(x, y, compensated: bool):
     leaves are read as float32: neither a Dekker split nor an N-term sum
     works at 8 mantissa bits."""
     if isinstance(x, BlockVec):
-        return sum(_inner_c(a, b, compensated)
-                   for a, b in zip(x.leaves, y.leaves))
+        return bv_reduce(sum(_inner_c(a, b, compensated)
+                             for a, b in zip(x.leaves, y.leaves)), x, y)
     if x.dtype == torch.bfloat16 or y.dtype == torch.bfloat16:
         x, y = x.float(), y.float()
     if compensated:
@@ -76,7 +76,7 @@ def _re(z):
 
 def _norm_c(x, compensated: bool):
     if isinstance(x, BlockVec):
-        s = sum(_inner_c(a, a, compensated) for a in x.leaves)
+        s = bv_reduce(sum(_inner_c(a, a, compensated) for a in x.leaves), x)
         return torch.sqrt(torch.clamp(s, min=0))
     if compensated:
         from ..utils.compensated import norm2

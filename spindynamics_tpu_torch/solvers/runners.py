@@ -9,8 +9,14 @@ two real planes, through the same apply. lanczos_sqw_kron: the second
 spectral path, a basis-free Lanczos tridiagonalization of the same plane
 pair. kpm_correlation_matrix_kron: |S_{Sz_i Sz_j}(omega)| for all site
 pairs, one Chebyshev recurrence per B site with the moments against every
-A site from one marginal pass. The sharded forms (`mesh=`) wait for the
-multi-GPU slice (ROADMAP Queue 1, item 13).
+A site from one marginal pass.
+
+Every kron runner takes `mesh=` (a LocalMesh or a ProcessMesh,
+parallel/mesh.py) and then runs the whole solve on row-sharded BlockVecs:
+the apply is the block-distributed one (parallel/sharded_kron_scaling.py,
+K1 on each shard's local block), the start, psi0 and every recurrence
+vector stay in sharded form, every dot ends in the mesh's all-reduce, and
+the observables are summed per shard: no state is gathered anywhere.
 """
 
 from __future__ import annotations
@@ -19,33 +25,35 @@ import numpy as np
 import torch
 
 from ..ops.kron_group import KronHamiltonian
-from ..ops.sector_kron import apply_H_sector_kron, make_sector_kron_layout
+from ..ops.sector_kron import make_sector_kron_layout
 from ..utils.compensated import vdot2
 from ..utils.device import resolve_device
 from ..utils.dtypes import complex_dtype
-from .blockvec import BlockVec, bv_random
+from .blockvec import BlockVec, bv_random, bv_reduce
 
 __all__ = ["groundstate_kron", "kpm_sqw_kron", "lanczos_sqw_kron",
            "kpm_correlation_matrix_kron", "run_chebyshev", "run_krylov",
            "evolve_trajectory"]
 
 
-def _kron_matvec_for(lay, fused: bool, dtype, device, mesh=None
-                     ) -> KronHamiltonian:
+def _kron_matvec_for(lay, fused: bool, dtype, device, mesh=None):
     """The H apply of a kron runner on BlockVec states of `dtype`:
-    KronHamiltonian with K1 (`fused`) or the plain blocks apply. K1 takes
-    float32 (and bfloat16) states only: on the CPU a `fused` solve in
-    float64 runs the plain blocks apply, as in the JAX package; on CUDA it
-    raises. The sharded apply (`mesh`) is not ported."""
-    from .kron_evolve import _no_mesh
-
-    _no_mesh(mesh)
+    KronHamiltonian with K1 (`fused`) or the plain blocks apply, or, with
+    `mesh`, the ShardedKronHamiltonian over it (K1 on each shard's local
+    block, or the plain apply there). K1 takes float32 (and bfloat16)
+    states only: on the CPU a `fused` solve in float64 runs the plain
+    apply, as in the JAX package; on CUDA it raises."""
     if fused and dtype != torch.float32:
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1, which takes float32 "
                              f"states, not {dtype}: pass fused=False or "
                              "dtype=torch.float32")
         fused = False
+    if mesh is not None:
+        from ..parallel.sharded_kron_scaling import ShardedKronHamiltonian
+
+        return ShardedKronHamiltonian(lay, mesh, dtype=dtype, device=device,
+                                      fused=fused)
     return KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
 
 
@@ -60,7 +68,7 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
                      target_residual: float | None = 1e-3,
                      generator: torch.Generator | None = None,
                      fused: bool = True, dtype: torch.dtype | None = None,
-                     device=None, v0: BlockVec | None = None):
+                     device=None, v0: BlockVec | None = None, mesh=None):
     """Ground state of a sector_kron model in BlockVec form.
 
     The apply is K1 (`fused`, float32) or the plain blocks apply. K1 takes
@@ -70,22 +78,30 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
     numpy-made start through utils.convert.blockvec_from_numpy) or a random
     BlockVec from `generator` (default: seed 0 on `device`). `device`
     defaults to v0's device, else the card (utils.device.resolve_device:
-    without CUDA it raises; pass device="cpu" for a CPU run). Returns (E0,
-    psi, info, layout)."""
+    without CUDA it raises; pass device="cpu" for a CPU run).
+
+    `mesh` runs the whole solve sharded: the apply is the block-distributed
+    one, the start (the same draw as without a mesh, or `v0`, plain or
+    already in sharded form) and the returned Ritz vector stay in sharded
+    form on the mesh (under a ProcessMesh each rank holds its rows), and
+    the bucketed Ritz finalize asks the sharded apply for a few groups at a
+    time. `device` then defaults to the mesh's.
+
+    Returns (E0, psi, info, layout)."""
     if dtype is None:
         dtype = model.dtype
-    device = resolve_device(device, v0)
+    device = resolve_device(device, v0, mesh)
     lay = make_sector_kron_layout(model, model.kron_splits, model.kron_pads)
-    mv = _kron_matvec_for(lay, fused, dtype, device)
+    mv = _kron_matvec_for(lay, fused, dtype, device, mesh)
     if v0 is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        v0 = bv_random(lay, generator, dtype, device)
+        v0 = bv_random(lay, generator, dtype, device, shard=mv.shard)
     else:
         # the solver normalizes its start in place
-        v0 = BlockVec([l.to(device=device, dtype=dtype, copy=True)
-                       for l in v0.leaves])
-    finalize = _make_bucketed_finalize(lay, mv.tables)
+        v0 = mv.to_mesh(v0).map(
+            lambda l: l.to(device=device, dtype=dtype, copy=True))
+    finalize = _make_bucketed_finalize(lay, mesh)
     from .lanczos import lanczos_groundstate_restarted
 
     E0, psi, info = lanczos_groundstate_restarted(
@@ -94,53 +110,68 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
     return E0, psi, info, lay
 
 
-def _make_bucketed_finalize(layout, tables, n_buckets: int = 4):
+def _make_bucketed_finalize(layout, mesh=None, n_buckets: int = 4):
     """Memory-lean Ritz finalize for BlockVec kron states.
 
-    Normalizes psi in place, then two sweeps over group buckets with the
-    group-filtered plain apply: sweep 1 accumulates E = <psi|H|psi>, sweep 2
-    ||(H psi)_g - E psi_g||^2. Peak memory is psi + one bucket of outputs.
-    Kept from the JAX package, where a full H psi beside psi brushed the
-    16 GB ceiling at L=32; on 80 GB it stays for parity."""
+    Normalizes psi in place, then two sweeps over group buckets with
+    `matvec(psi, groups=bucket)` (H psi for those groups alone: the
+    group-filtered plain apply of a KronHamiltonian, or the sharded apply
+    on sharded leaves, which exchanges only those groups' windows and
+    partials; the dots end in `mesh`'s all-reduce): sweep 1 accumulates E =
+    <psi|H|psi>, sweep 2 ||(H psi)_g - E psi_g||^2. Peak memory is psi +
+    one bucket of outputs. Kept from the JAX package, where a full H psi
+    beside psi brushed the 16 GB ceiling at L=32; on 80 GB it stays for
+    parity."""
     n_groups = len(layout.groups)
     edges = np.linspace(0, n_groups, n_buckets + 1).astype(int)
     buckets = [tuple(range(edges[i], edges[i + 1])) for i in range(n_buckets)
                if edges[i] < edges[i + 1]]
 
     def finalize(matvec, psi_unnorm):
-        del matvec
         leaves = list(psi_unnorm.leaves)
         del psi_unnorm
-        nrm = torch.sqrt(torch.clamp(sum(vdot2(x, x) for x in leaves),
-                                     min=0.0))
+
+        def apply_groups(leaves, b):
+            return matvec(BlockVec(leaves, mesh), groups=b).leaves
+
+        def total(x):  # over this process's rows, then over the mesh
+            return x if mesh is None else mesh.all_reduce_sum(x)
+
+        nrm = torch.sqrt(torch.clamp(
+            total(sum(vdot2(x, x) for x in leaves)), min=0.0))
         inv = 1.0 / nrm
         for x in leaves:
             x.mul_(inv.to(x.dtype))
         E = 0
         for b in buckets:
-            h = apply_H_sector_kron(leaves, None, layout, tables,
-                                    group_filter=b)
+            h = apply_groups(leaves, b)
             E = E + sum(vdot2(leaves[g], h[g]) for g in b)
+        E = total(E)
         r2 = 0
         for b in buckets:
-            h = apply_H_sector_kron(leaves, None, layout, tables,
-                                    group_filter=b)
+            h = apply_groups(leaves, b)
             r2 = r2 + sum(vdot2(h[g] - leaves[g] * E, h[g] - leaves[g] * E)
                           for g in b)
-        resid = torch.sqrt(torch.clamp(r2, min=0.0))
-        return BlockVec(leaves), E, resid
+        resid = torch.sqrt(torch.clamp(total(r2), min=0.0))
+        return BlockVec(leaves, mesh), E, resid
 
     return finalize
 
 
-def _phi_planes(leaves, weights):
-    """phi = S^z_q psi as (re, im) plane leaves + per-plane ||.||^2."""
+def _norm2_plain(bv: BlockVec):
+    """||bv||^2 by plain per-leaf dots (summed over the mesh's processes
+    for a sharded state)."""
+    return bv_reduce(sum(torch.dot(x.reshape(-1), x.reshape(-1))
+                         for x in bv.leaves), bv)
+
+
+def _phi_planes(psi: BlockVec, weights):
+    """phi = S^z_q psi as an (re, im) pair of BlockVecs + per-plane
+    ||.||^2."""
     from ..observables_kron import bv_sz_q_apply
 
-    pr, pi = bv_sz_q_apply(BlockVec(leaves), weights)
-    n2r = sum(torch.dot(x.reshape(-1), x.reshape(-1)) for x in pr.leaves)
-    n2i = sum(torch.dot(x.reshape(-1), x.reshape(-1)) for x in pi.leaves)
-    return pr.leaves, pi.leaves, n2r, n2i
+    pr, pi = bv_sz_q_apply(psi, weights)
+    return pr, pi, _norm2_plain(pr), _norm2_plain(pi)
 
 
 def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
@@ -149,7 +180,7 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
                  generator: torch.Generator | None = None, bounds_m: int = 40,
                  doubling_trick: bool = True, fused: bool = True,
                  psi0: BlockVec | None = None, E0=None, info=None,
-                 safety: float = 0.01, bounds=None, device=None):
+                 safety: float = 0.01, bounds=None, device=None, mesh=None):
     """T=0 dynamic structure factor S(q, omega) at kron BlockVec scale.
 
     Ground state via groundstate_kron (unless psi0 and E0 are given), then
@@ -161,29 +192,35 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
     float32. The q-points run serially (peak memory independent of
     len(q_list)); kept from the JAX package for parity.
 
-    `device` defaults to psi0's device, else the card (pass device="cpu"
-    for a CPU run). Returns (S [nq, n_omega] numpy, info dict with
-    E0/bounds/a/b)."""
+    `mesh` runs the ground state, phi's construction (the hi weights cut
+    to each shard's rows) and every moment recurrence on sharded BlockVecs;
+    a given psi0 may be plain or already in sharded form.
+
+    `device` defaults to psi0's device, else the mesh's, else the card
+    (pass device="cpu" for a CPU run). Returns (S [nq, n_omega] numpy, info
+    dict with E0/bounds/a/b)."""
     from .chebyshev import chebyshev_moments, kpm_reconstruct
     from .lanczos import lanczos_iteration, tridiag_eigh
     from ..observables_kron import bv_sz_q_weights
 
-    device = resolve_device(device, psi0)
+    device = resolve_device(device, psi0, mesh)
     if psi0 is None or E0 is None:
         E0, psi0, info, lay = groundstate_kron(
             model, lanc_m=lanc_m, cycles=cycles,
             target_residual=target_residual, generator=generator,
-            fused=fused, device=device)
+            fused=fused, device=device, mesh=mesh)
     else:
         lay = make_sector_kron_layout(model, model.kron_splits,
                                       model.kron_pads)
     info = dict(info or {})
-    mv = KronHamiltonian(lay, dtype=torch.float32, device=device, fused=fused)
+    mv = _kron_matvec_for(lay, fused, torch.float32, device, mesh)
+    shard, to_mesh = mv.shard, mv.to_mesh
 
     if bounds is None:
         g7 = torch.Generator(device=device).manual_seed(7)
-        fac = lanczos_iteration(mv, bv_random(lay, g7, torch.float32, device),
-                                bounds_m)
+        fac = lanczos_iteration(
+            mv, bv_random(lay, g7, torch.float32, device, shard=shard),
+            bounds_m)
         evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
         lo, hi = min(float(evals.min()), float(E0)), float(evals.max())
         pad = safety * 0.5 * (hi - lo) + 1e-6
@@ -197,14 +234,14 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
     def mvr(bv):
         return (mv(bv) - bv * bb) * a_inv
 
-    psi0 = BlockVec([l.to(device=device, dtype=torch.float32)
-                     for l in psi0.leaves])
+    psi0 = to_mesh(psi0).map(
+        lambda l: l.to(device=device, dtype=torch.float32))
     hi_lens = [l.shape[0] for l in psi0.leaves]
 
     S_rows, n2s = [], []
     for q in q_list:
         phi_r, phi_i, n2r, n2i = _phi_planes(
-            psi0.leaves, bv_sz_q_weights(lay, float(q), hi_lens))
+            psi0, bv_sz_q_weights(lay, float(q), hi_lens, mesh=mesh))
         n2 = float(n2r) + float(n2i)
         n2s.append(n2)
         if n2 <= 0.0:
@@ -212,9 +249,9 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
             continue
         inv = torch.tensor(1.0 / np.sqrt(n2), dtype=torch.float32,
                            device=device)
-        mu = (chebyshev_moments(mvr, BlockVec(phi_r) * inv, kpm_m,
+        mu = (chebyshev_moments(mvr, phi_r * inv, kpm_m,
                                 doubling_trick=doubling_trick)
-              + chebyshev_moments(mvr, BlockVec(phi_i) * inv, kpm_m,
+              + chebyshev_moments(mvr, phi_i * inv, kpm_m,
                                   doubling_trick=doubling_trick))
         S_rows.append(mu.cpu().numpy().astype(np.float32))
 
@@ -258,8 +295,10 @@ def lanczos_sqw_kron(model, q_list, omega, lanc_m: int = 100,
     tridiagonalizations; the same number of applies, another finite-m
     estimator). A phi of zero norm (q = 0 at Sz = 0) gives a zero row; the
     guard runs before any division. A float64 model keeps float64 states;
-    everything else runs float32. `device` defaults to psi0's, else the
-    card. Returns (S [nq, n_omega] numpy, info with E0 and plane_mode)."""
+    everything else runs float32. `mesh` runs the ground state and every
+    tridiagonalization on sharded BlockVecs (psi0 plain or in sharded
+    form). `device` defaults to psi0's, else the mesh's, else the card.
+    Returns (S [nq, n_omega] numpy, info with E0 and plane_mode)."""
     from ..observables_kron import bv_sz_q_weights
     from .kron_evolve import lanczos_tridiag_pair
     from .lanczos import lanczos_iteration
@@ -267,13 +306,13 @@ def lanczos_sqw_kron(model, q_list, omega, lanc_m: int = 100,
 
     if plane_mode not in ("pair", "split"):
         raise ValueError(f"unknown plane_mode {plane_mode!r}")
-    device = resolve_device(device, psi0)
+    device = resolve_device(device, psi0, mesh)
     rdt = _state_dtype_of(model)
     if psi0 is None or E0 is None:
         E0, psi0, info, lay = groundstate_kron(
             model, lanc_m=gs_lanc_m, cycles=cycles,
             target_residual=target_residual, generator=generator,
-            fused=fused, device=device)
+            fused=fused, device=device, mesh=mesh)
     else:
         lay = make_sector_kron_layout(model, model.kron_splits,
                                       model.kron_pads)
@@ -283,7 +322,8 @@ def lanczos_sqw_kron(model, q_list, omega, lanc_m: int = 100,
     def pmv(pair):
         return mv(pair[0]), mv(pair[1])
 
-    psi0 = BlockVec([l.to(device=device, dtype=rdt) for l in psi0.leaves])
+    psi0 = mv.to_mesh(psi0).map(
+        lambda l: l.to(device=device, dtype=rdt))
     hi_lens = [l.shape[0] for l in psi0.leaves]
     wdt = np.float64 if rdt == torch.float64 else np.float32
 
@@ -292,20 +332,20 @@ def lanczos_sqw_kron(model, q_list, omega, lanc_m: int = 100,
     entries = []
     for iq, q in enumerate(q_list):
         phi_r, phi_i, n2r, n2i = _phi_planes(
-            psi0.leaves, bv_sz_q_weights(lay, float(q), hi_lens, dtype=wdt))
+            psi0, bv_sz_q_weights(lay, float(q), hi_lens, dtype=wdt,
+                                  mesh=mesh))
         n2r, n2i = float(n2r), float(n2i)
         if n2r + n2i <= 0.0:
             continue  # zero row
         if plane_mode == "pair":
             al, be, nrm = lanczos_tridiag_pair(
-                pmv, (BlockVec(phi_r), BlockVec(phi_i)), lanc_m=lanc_m,
-                tol=tol)
+                pmv, (phi_r, phi_i), lanc_m=lanc_m, tol=tol)
             entries.append((iq, al.numpy(), be.numpy(), float(nrm)))
             continue
-        for leaves, n2 in ((phi_r, n2r), (phi_i, n2i)):
+        for phi, n2 in ((phi_r, n2r), (phi_i, n2i)):
             if n2 <= 1e-12 * (n2r + n2i):
                 continue  # e.g. the sin plane at q = pi
-            fac = lanczos_iteration(mv, BlockVec(leaves), lanc_m, tol=tol)
+            fac = lanczos_iteration(mv, phi, lanc_m, tol=tol)
             entries.append((iq, fac.alphas.numpy(),
                             fac.betas.numpy()[: lanc_m - 1],
                             float(fac.v0_norm)))
@@ -348,29 +388,34 @@ def kpm_correlation_matrix_kron(model, omega, n: int = 300,
 
     `sites` restricts the B loop (C is then [L, len(sites), W]); (a, b)
     given skip the bounds Lanczos (start: seed 7 on `device`). A float64
-    model keeps float64 states. `device` defaults to psi0's, else the card.
+    model keeps float64 states. `mesh` runs psi0 and every recurrence on
+    sharded BlockVecs: each process sums the marginals of its rows, and
+    the [L] moments of a step end in one all-reduce. `device` defaults to
+    psi0's, else the mesh's, else the card.
     Returns (C [L, n_sites, n_omega] numpy, info)."""
     from ..observables_kron import bv_apply_sz, bv_site_moments
     from .chebyshev import kpm_reconstruct
     from .lanczos import lanczos_iteration, tridiag_eigh
 
-    device = resolve_device(device, psi0)
+    device = resolve_device(device, psi0, mesh)
     rdt = _state_dtype_of(model)
     if psi0 is None or E0 is None:
         E0, psi0, info, lay = groundstate_kron(
             model, lanc_m=lanc_m, cycles=cycles,
             target_residual=target_residual, generator=generator,
-            fused=fused, device=device)
+            fused=fused, device=device, mesh=mesh)
     else:
         lay = make_sector_kron_layout(model, model.kron_splits,
                                       model.kron_pads)
     info = dict(info or {})
     mv = _kron_matvec_for(lay, fused, rdt, device, mesh)
-    psi0 = BlockVec([l.to(device=device, dtype=rdt) for l in psi0.leaves])
+    shard = mv.shard
+    psi0 = mv.to_mesh(psi0).map(lambda l: l.to(device=device, dtype=rdt))
 
     if a is None or b is None:
         g7 = torch.Generator(device=device).manual_seed(7)
-        fac = lanczos_iteration(mv, bv_random(lay, g7, rdt, device), bounds_m)
+        fac = lanczos_iteration(
+            mv, bv_random(lay, g7, rdt, device, shard=shard), bounds_m)
         evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
         lo, hi = float(evals.min()), float(evals.max())
         if E0 is not None:
@@ -387,7 +432,7 @@ def kpm_correlation_matrix_kron(model, omega, n: int = 300,
 
     def mu(v):
         return bv_site_moments(
-            [p * x for p, x in zip(psi0.leaves, v.leaves)], lay)
+            [p * x for p, x in zip(psi0.leaves, v.leaves)], lay, mesh)
 
     def moments_all_A(phi):
         """[n, L] moments of one B state against all A sites."""
@@ -407,8 +452,7 @@ def kpm_correlation_matrix_kron(model, omega, n: int = 300,
     mu_rows = []
     for j in sites:
         phi = bv_apply_sz(psi0, lay, int(j))
-        n2 = float(sum(torch.dot(x.reshape(-1), x.reshape(-1))
-                       for x in phi.leaves))
+        n2 = float(_norm2_plain(phi))
         if n2 <= 0.0:
             mu_rows.append(np.zeros((n, model.L), np.float64))
             continue

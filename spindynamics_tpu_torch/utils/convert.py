@@ -46,12 +46,28 @@ def model_from_numpy(L: int, nup, hop_sites, hop_J, field, zz_sites, zz_J,
 model_from_jax_arrays = model_from_numpy
 
 
-def blockvec_from_numpy(leaves, device,
-                        dtype: torch.dtype = torch.float32) -> BlockVec:
+def blockvec_from_numpy(leaves, device, dtype: torch.dtype = torch.float32,
+                        spec=None, mesh=None) -> BlockVec:
     """BlockVec from a list of per-group numpy arrays [C_h, C_m_pad,
     C_l_pad]. dtype=torch.bfloat16 rounds float32 values to nearest even
-    (numpy has no bfloat16; `_tensor` says how)."""
-    return BlockVec([_tensor(l, dtype, device) for l in leaves])
+    (numpy has no bfloat16; `_tensor` says how).
+
+    With `spec` and `mesh` (a KronShardSpec and a LocalMesh or ProcessMesh
+    of its D shards) the result is in sharded form on the mesh. The arrays
+    are plain leaves [C_h, ...] or whole sharded-form leaves [D*b, ...]
+    (a JAX sharded state's leaves as numpy arrays): the hi axis is
+    zero-padded to D*b where it is shorter, and each process keeps the
+    rows of its shards (a ProcessMesh rank its b rows)."""
+    if (spec is None) != (mesh is None):
+        raise ValueError("the sharded form needs both spec and mesh")
+    if spec is None:
+        return BlockVec([_tensor(l, dtype, device) for l in leaves])
+    out = []
+    for gi, l in enumerate(leaves):
+        l = np.asarray(l)
+        l = np.pad(l, ((0, spec.ch_pad[gi] - l.shape[0]), (0, 0), (0, 0)))
+        out.append(_tensor(l[mesh.row_slice(spec.b[gi])], dtype, device))
+    return BlockVec(out, mesh)
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -71,10 +87,20 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def blockvec_to_numpy(bv: BlockVec) -> list:
+def blockvec_to_numpy(bv: BlockVec, spec=None) -> list:
     """List of per-group numpy arrays (copied to the host); bfloat16 leaves
-    as float32."""
-    return [_numpy(l) for l in bv.leaves]
+    as float32. A sharded BlockVec gives the rows its process holds (a
+    LocalMesh: the whole padded leaves [D*b, ...]); with `spec` the hi
+    padding rows of whole leaves are dropped, which gives the plain
+    leaves back."""
+    out = [_numpy(l) for l in bv.leaves]
+    if spec is not None:
+        if any(l.shape[0] != chp for l, chp in zip(out, spec.ch_pad)):
+            raise ValueError("dropping the hi padding needs whole "
+                             "sharded-form leaves; these hold one rank's "
+                             "rows")
+        out = [l[:g[3]] for l, g in zip(out, spec.layout.groups)]
+    return out
 
 
 def state_from_numpy(psi, device, dtype: torch.dtype | None = None

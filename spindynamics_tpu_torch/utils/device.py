@@ -1,9 +1,10 @@
 """The port's one rule for where an entry point runs.
 
 `device=None` means the card. A state the caller passes in decides the
-device when `device` is None; with neither, the entry point runs on
+device when `device` is None, then the device of a `mesh=` argument that
+names one; with none of them the entry point runs on
 `torch.device("cuda")`, and raises when there is none: a CPU run is always
-asked for (`device="cpu"`), never fallen into.
+asked for (`device="cpu"`, a CPU state or a CPU mesh), never fallen into.
 """
 
 from __future__ import annotations
@@ -22,13 +23,16 @@ def _device_of(like):
     return getattr(like, "device", None)
 
 
-def resolve_device(device=None, like=None) -> torch.device:
+def resolve_device(device=None, like=None, mesh=None) -> torch.device:
     """The device an entry point runs on: `device` when given, else the
-    device of `like` (a state the caller passed), else the card. Raises
-    RuntimeError when the card is wanted and CUDA is not available."""
+    device of `like` (a state the caller passed), else that of `mesh` (a
+    LocalMesh made with one), else the card. Raises RuntimeError when the
+    card is wanted and CUDA is not available."""
     if device is not None:
         return torch.device(device)
     dev = _device_of(like)
+    if dev is None:
+        dev = getattr(mesh, "device", None)
     if dev is not None:
         return torch.device(dev)
     if not torch.cuda.is_available():

@@ -294,11 +294,23 @@ def test_typicality_matches_jax(method):
 
 
 def test_mesh_and_bf16_are_not_ported():
+    """(The name is from when they were not.) `mesh=` runs the sharded path:
+    a two-shard trajectory and typicality correlation agree with the
+    unsharded ones (2e-5, float32); tests/test_torch_parallel.py holds them
+    to the JAX package."""
     _, _, mt, _ = _models(8, field=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tke.evolve_trajectory_kron(mt, 0b1111, 0.1, 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tke.typicality_correlation_kron(mt, 1.0, 0, 1, (0.0,), mesh=object())
+    mesh = pt.LocalMesh(2, "cpu")
+    kw = dict(cheb_n=12, Ebounds=(-3.5, 3.5))
+    pair, obs, _ = tke.evolve_trajectory_kron(mt, 0b1111, 0.1, 1, mesh=mesh,
+                                              **kw)
+    _, obs_u, _ = tke.evolve_trajectory_kron(mt, 0b1111, 0.1, 1,
+                                             device="cpu", **kw)
+    assert pair[0].mesh is mesh and np.abs(obs - obs_u).max() <= 2e-5
+    g = tke.typicality_correlation_kron(mt, 1.0, 0, 1, (0.0,), mesh=mesh,
+                                        **kw)
+    g_u = tke.typicality_correlation_kron(mt, 1.0, 0, 1, (0.0,),
+                                          device="cpu", **kw)
+    assert np.abs(g - g_u).max() <= 2e-5
     # the port reads no environment for routing: K2's use is a field
     planes = tke.kron_planes_matvec_fn(tsk.make_sector_kron_layout(
         mt, mt.kron_splits), device="cpu")

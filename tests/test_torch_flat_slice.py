@@ -216,7 +216,11 @@ def test_no_entry_point_defaults_to_cpu():
            lanczos.estimate_energy_bounds, pt.basis_state_vector,
            pt.domain_wall_state, pt.neel_state, pt.polarized_state,
            pt.polarized_state_with_flips, blockvec.bv_random,
-           blockvec.bv_basis_state]
+           blockvec.bv_basis_state, pt.lanczos_sqw_kron,
+           pt.kpm_correlation_matrix_kron,
+           # the sharded kron path: the mesh's device, else the card
+           pt.ShardedKronHamiltonian.__init__, pt.LocalMesh.__init__,
+           pt.sharded_kron_scaling_bv_matvec_fn, pt.mesh_from_topology]
     for f in fns:
         p = inspect.signature(f).parameters["device"]
         assert p.default is None, f

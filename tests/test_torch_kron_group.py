@@ -280,13 +280,19 @@ def _emulate_k1(d, store=True):
                             if mr.ca0 <= m < mr.ca0 + mr.lna:
                                 row = (srow * x.cmp_s + mr.ra0 + m - mr.ca0)
                                 v = v + mr.val * S[row * clp:][ls]
+                    for x in d.crossw[:d.n_crossw]:  # window_row_add
+                        W = sarr(x.win, ch * x.cmp_s * clp)
+                        for mr in x.mids[:x.n_mids]:
+                            if mr.ca0 <= m < mr.ca0 + mr.lna:
+                                row = h * x.cmp_s + mr.ra0 + m - mr.ca0
+                                v = v + mr.val * W[row * clp:][ls]
                     out[idx + l0:idx + l0 + _BL] = v
     if store and d.state_type == 1:
         out = _round_bf16(out)
     return out.reshape(ch, cmp, clp)
 
 
-def _k1_descriptor(call, T, seed, srcs, srcsh):
+def _k1_descriptor(call, T, seed, srcs, srcsh, wins=()):
     """The group's descriptor as kron_group_apply fills it for a launch
     (but for `out`), over CPU tensors."""
     d = call.descriptor(torch.device("cpu"))
@@ -297,6 +303,8 @@ def _k1_descriptor(call, T, seed, srcs, srcsh):
         d.cross[i].src = S.data_ptr()
     for i, S in enumerate(srcsh):
         d.crossh[i].src = S.data_ptr()
+    for i, S in enumerate(wins):
+        d.crossw[i].win = S.data_ptr()
     return d
 
 
@@ -325,10 +333,15 @@ def test_k1_tile_emulation_matches_reference(L, splits):
 
 
 def test_k1_descriptor_layout_and_refusals():
-    assert ctypes.sizeof(kg._KgDesc) == 88 + 40 * 16 + 96 * 8
-    # the state type sits in what was padding after the five ints
+    # 8 pointers, 7 ints (+4 bytes of padding), then the three term arrays
+    assert ctypes.sizeof(kg._KgCrossW) == 8 + 2 * 4 + 16 * 4
+    assert ctypes.sizeof(kg._KgDesc) == 96 + 40 * 16 + 96 * 8 + 80 * 8
+    # the state type sits after the five ints, the window count after it
     assert kg._KgDesc.state_type.offset == 84
-    assert kg._KgDesc.cross.offset == 88
+    assert kg._KgDesc.n_crossw.offset == 88
+    assert kg._KgDesc.cross.offset == 96
+    assert kg._KgDesc.crossh.offset == 96 + 40 * 16
+    assert kg._KgDesc.crossw.offset == 96 + 40 * 16 + 96 * 8
     mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
     calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
     with pytest.raises(ValueError, match="tables on"):
@@ -338,3 +351,93 @@ def test_k1_descriptor_layout_and_refusals():
     T = torch.zeros(calls[0].shape, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kg.kron_group_apply(T, None, [], [], calls[0])
+
+
+# ---- the crossw variant: a shard's local block with windows ----------------
+
+
+def _shard_launches(L, splits, D, sdt, seed):
+    """The windowed K1 launches of one sharded apply over LocalMesh(D), as
+    the apply makes them: [(T, seed, srcs, wins, call, gi, shard)], and the
+    layout and spec."""
+    from spindynamics_tpu_torch.parallel import sharded_kron_scaling as sk
+
+    mj, lj, mt, lt = _models(L, splits=splits)
+    mesh = pt.LocalMesh(D, "cpu")
+    H = pt.ShardedKronHamiltonian(lt, mesh, device="cpu")
+    spec, cfg = H.spec, H.cfg
+    x = torch.as_tensor(_state(mj, lj, seed), dtype=torch.float32)
+    bv = pt.shard_kron_blockvec(
+        pt.BlockVec(tsk.flat_to_blocks(x, lt)), spec, mesh).astype(sdt)
+    tables, shards = H._state()
+    wins = sk._build_crossh_windows_leaves(bv.leaves, cfg.moves, mesh)
+    out = []
+    for gi in sorted(cfg.fused_set):
+        b = spec.b[gi]
+        for i, sh in enumerate(shards):
+            call = sh["calls"][gi]
+            if not call.crossw:
+                continue
+            G = [l[i * bg:(i + 1) * bg] for l, bg in zip(bv.leaves, spec.b)]
+            sd_ = (G[gi] * 0.5 + 1.0).to(sdt) if (gi + i) % 2 else None
+            w = [wins[cfg.win_pos[(gi, ei)]][i * b:(i + 1) * b]
+                 for ei in range(len(call.crossw))]
+            out.append((G[gi], sd_, [G[c[0]] for c in call.cross], w, call,
+                        gi, i))
+    return out, lt, spec
+
+
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,splits,D", [(16, (6, 4, 6), 4), (14, (6, 4, 4), 2),
+                                        (12, None, 8)])
+def test_crossw_tile_emulation_matches_reference(L, splits, D, sdt):
+    """Every windowed launch of a sharded apply: the descriptor-driven tile
+    emulation (windows read through KgCrossW) equals K1's plain version;
+    tile pads and the hi padding rows of the last shards are exactly 0.
+    float32: 2e-6 of the scale (summation order). bfloat16: the emulation
+    rounds its float64 sum once, the plain version its float32 sum, so the
+    two agree to one bfloat16 unit (2^-7 |y|)."""
+    launches, lt, spec = _shard_launches(L, splits, D, sdt, 11)
+    assert launches
+    for (T, seed, srcs, w, call, gi, i) in launches:
+        assert call.crossh == [] and len(call.crossw) == len(w) > 0
+        ref = kg.kron_group_apply_reference(T, seed, srcs, [], call, w)
+        assert ref.dtype == sdt
+        emu = _emulate_k1(_k1_descriptor(call, T, seed, srcs, [], w))
+        r = ref.double().numpy()
+        scale = float(np.abs(r).max()) + 1.0
+        if sdt == torch.float32:
+            assert np.abs(emu - r).max() < 2e-6 * scale
+        else:
+            assert np.all(np.abs(emu - r) <= 2.0 ** -7 * np.abs(r)
+                          + 1e-5 * scale)
+        # the wrapper on a CPU tensor is the plain version, and writes `out`
+        out = torch.full_like(T, 7.0)
+        got = kg.kron_group_apply(T, seed, srcs, [], call, w, out=out)
+        assert got is out and torch.equal(out, ref)
+        if seed is None:  # (a seed is arbitrary there; the apply's is 0)
+            (_, _, _, ch, cm, cl, _, _) = lt.groups[gi]
+            real = max(0, min(spec.b[gi], ch - i * spec.b[gi]))
+            assert not ref[real:].any()
+            assert not ref[:, cm:].any() and not ref[:, :, cl:].any()
+
+
+def test_crossw_refusals_and_counts():
+    """A windowed call takes its windows and nothing else; the wrapper
+    refuses a wrong count on any device but the CPU's plain path, and the
+    crossw launch count is K1's own, per state dtype."""
+    launches, lt, spec = _shard_launches(12, None, 2, torch.float32, 3)
+    (T, seed, srcs, w, call, gi, i) = launches[0]
+    assert call.shape[0] == spec.b[gi]
+    assert call.crossw_shapes == [(spec.b[gi], c[0], call.shape[2])
+                                  for c in call.crossw]
+    d = _k1_descriptor(call, T, seed, srcs, [], w)
+    assert d.n_crossw == len(w) and d.n_crossh == 0
+    assert d.ch == spec.b[gi]
+    n0 = kg.kernel_launch_count(crossw=True)
+    kg.kron_group_apply(T, seed, srcs, [], call, w)
+    assert kg.kernel_launch_count(crossw=True) == n0  # CPU: plain version
+    meta = [t.to("meta") for t in [T] + list(w)]
+    with pytest.raises(ValueError, match="CUDA"):
+        kg.kron_group_apply(meta[0], None, [], [], call, meta[1:])

@@ -255,6 +255,7 @@ def test_kpm_correlation_matrix_kron_own_ground_state_and_bounds():
     lo, hi = info["bounds"]
     assert lo < info["E0"] + 1e-6 and hi > 0 and info["residual"] <= 1e-3
     assert abs(info["a"] - (hi - lo) / 2.0) < 1e-9
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt.kpm_correlation_matrix_kron(m, OMEGA, n=8, device="cpu",
-                                       mesh=object())
+    # a mesh runs the same solve on row-sharded states
+    Cm, _ = pt.kpm_correlation_matrix_kron(m, OMEGA, n=24, sites=[3],
+                                           mesh=pt.LocalMesh(2, "cpu"))
+    assert np.abs(Cm[:, 0] - C[:, 3]).max() <= 1e-3 * C.max()

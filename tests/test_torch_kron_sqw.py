@@ -130,9 +130,10 @@ def test_sum_rule_and_zero_row(plane_mode):
 
 def test_runs_its_own_ground_state_and_refusals():
     """Without psi0 the runner solves the ground state first (float32, the
-    fused route's plain version on the CPU); a mesh and an unknown plane
-    mode are refused; a fused float64 solve on CUDA raises before any tensor
-    is made."""
+    fused route's plain version on the CPU); a mesh runs the same
+    tridiagonalizations on row-sharded states; an unknown plane mode is
+    refused; a fused float64 solve on CUDA raises before any tensor is
+    made."""
     L = 10
     m = pt.xxz_chain(L, nup=L // 2, **KW)
     S, info = pt.lanczos_sqw_kron(m, [np.pi], OMEGA, lanc_m=30, eta=0.1,
@@ -142,9 +143,9 @@ def test_runs_its_own_ground_state_and_refusals():
     S64, _ = pt.lanczos_sqw_kron(m, [np.pi], OMEGA, lanc_m=30, eta=0.1,
                                  psi0=psi, E0=E0)
     assert np.abs(S - S64).max() <= 2e-2 * S64.max()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt.lanczos_sqw_kron(m, [np.pi], OMEGA, psi0=psi, E0=E0,
-                            mesh=object())
+    Sm, _ = pt.lanczos_sqw_kron(m, [np.pi], OMEGA, lanc_m=30, eta=0.1,
+                                psi0=psi, E0=E0, mesh=pt.LocalMesh(2, "cpu"))
+    assert np.abs(Sm - S64).max() <= 1e-4 * S64.max()
     with pytest.raises(ValueError, match="plane_mode"):
         pt.lanczos_sqw_kron(m, [np.pi], OMEGA, psi0=psi, E0=E0,
                             plane_mode="both")

@@ -42,6 +42,11 @@ def test_port_imports_no_jax():
         "import spindynamics_tpu_torch.solvers.kpm\n"
         "import spindynamics_tpu_torch.solvers.krylov\n"
         "import spindynamics_tpu_torch.solvers.lanczos_sqw\n"
+        "import spindynamics_tpu_torch.parallel.mesh\n"
+        "import spindynamics_tpu_torch.parallel.distributed\n"
+        "import spindynamics_tpu_torch.parallel.sharded_kron_scaling\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist_worker\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'spindynamics_tpu'))\n"
@@ -57,13 +62,23 @@ def test_port_imports_no_jax():
 
 def test_port_reads_no_environment():
     """Routing (K1, K2, top_k, fuse_crossh) is a field of the modules, never
-    an environment read: no source of the port touches the environment."""
+    an environment read: no source of the port touches the environment,
+    but for parallel/distributed.py, which reads the launcher's four
+    process-group variables (they name the cluster, not a route)."""
+    import re
+
     pkg = os.path.join(REPO, "spindynamics_tpu_torch")
     for root, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
                     src = fh.read()
+                if f == "distributed.py":
+                    names = set(re.findall(
+                        r"""environ(?:\.get\(|\[)['"](\w+)['"]""", src))
+                    assert names == {"MASTER_ADDR", "MASTER_PORT",
+                                     "WORLD_SIZE", "RANK"}, names
+                    continue
                 assert "os.environ" not in src and "getenv(" not in src, f
 
 
