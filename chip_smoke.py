@@ -28,10 +28,11 @@ with no result line):
            (csrc/fused_matvec.cu), one nvcc each, all at once
   k1       K1 against its plain torch version on the card, at L=16 (every
            group) and at --L (the fused groups), with and without the
-           Lanczos axpy seed; pad slots exactly 0; warm CUDA-event times
+           Lanczos axpy seed; pad slots exactly 0; a second launch on the
+           same inputs identical in every byte; warm CUDA-event times
   k2       K2 against its plain version on the card, at L=16 and at --L
-           (the K2-fused groups, seeds as on the main path); pads 0; event
-           times of K2's part of a term and of a whole term
+           (the K2-fused groups, seeds as on the main path); pads 0; repeats
+           identical; event times of K2's part of a term and of a whole term
   k1-bf16  K1's bfloat16 instance against its plain version on the card, at
            L=16 and at --L: the bf16 output against the plain version's
            float32 value before rounding (one rounding: |d| <= 2^-8 |y| +
@@ -40,6 +41,11 @@ with no result line):
   k2-bf16  K2's bfloat16 instance likewise: next against the float32 x
            before rounding, the float32 accumulator (updated from the
            unrounded x) at K2's float32 tolerance; times beside float32
+  k1-fma   K1's FMA route (tables that are not exactly bf16) at L=16 and
+           --L: the XXZ chain with Jxy=0.3 against the plain version (1e-5,
+           pads 0, repeats identical); the main model's K1 launches and the
+           evolve model's K2 launches with every segment forced onto the
+           FMAs, held to the tensor-core route and timed beside it
   oracle   L=16 ground state on the card against the CPU x64 energy
   main     --L ground state + S(q, omega) for q = 2 pi k / L, k in (4, 7, L/2)
   evolve-oracle  L=12 domain-wall trajectory on the card (K2) against
@@ -99,18 +105,24 @@ with no result line):
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^13
+  kron-tiles (--kron-tiles) K1's and K2's time at --L with 32- and 64-row
+           output tiles beside the kernel's rule; results identical
 Then one JSON line with the kernel records, and last the device line.
 
 The bounds in the kernel records are the larger of bytes over 3.35 TB/s
-(each input read once, each output written once) and float32 operations
-over 67 TFLOP/s (the H100 SXM data sheet).
+(each input read once, each output written once) and the operations of the
+route each K segment took: bf16 tensor-core products (two passes for a
+float32 state, one for a bfloat16 state) over 989 TFLOP/s and float32 FMAs
+over 67 TFLOP/s (the H100 SXM data sheet). `fma_route_bound_ms` is the
+bound with every product on the FMAs; `fma_ms` the FMA route's time on the
+same launches, measured beside the tensor-core route (`tc_ms_beside_fma`).
 
 The sharded phases come on top of the earlier ones, none of which is cut
 in depth for them: with the defaults the whole script takes 5 to 6 minutes
 on an H100 (its limit is 20).
 
 Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--shards 4] [--profile]
-                             [--k3-tiles]
+                             [--k3-tiles] [--kron-tiles]
 """
 
 from __future__ import annotations
@@ -130,13 +142,27 @@ E0_REF = {16: -11.67077735, 28: -20.663187, 32: -23.661858}
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (data sheet)
 
 
-def _bound(n_bytes, flops):
-    """(bound_ms, bound_by): the least time the card could take."""
+def _bound(n_bytes, flops, tc_flops=0.0):
+    """(bound_ms, bound_by): the least time the card could take for
+    `n_bytes` of traffic, `flops` float32 operations on the CUDA cores and
+    `tc_flops` bf16 operations on the tensor cores."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    to = flops / F32_FLOPS_PER_S * 1e3
+    to = (flops / F32_FLOPS_PER_S + tc_flops / BF16_TC_FLOPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _bounds(works):
+    """The bound of a list of _group_work records summed, on the routes
+    the segments took, and (the FMA route's bound) with every product on
+    the CUDA cores. Returns (route bound, FMA-route bound, GB, GFLOP of
+    products once, of which GFLOP on the tensor cores per pass)."""
+    nb, fma, tc, fma_all, prod, tc1 = (sum(w[i] for w in works)
+                                       for i in range(6))
+    return (_bound(nb, fma, tc), _bound(nb, fma_all), nb / 1e9, prod / 1e9,
+            tc1 / 1e9)
 
 
 def _sync_time(fn):
@@ -246,17 +272,18 @@ def phase_build():
               f"{info['path']} | {' ; '.join(regs)}")
 
 
-def _k1_inputs(L, dev, sdt=torch.float32):
-    """Layout, kernel calls and main-path-shaped K1 inputs at size L: a
-    random state of dtype `sdt`, the Lanczos axpy operands, and each fused
-    group's seed (summed in float32, stored in `sdt`, as the apply does)."""
+def _k1_inputs(L, dev, sdt=torch.float32, model=None):
+    """Layout, kernel calls and main-path-shaped K1 inputs at size L (the
+    Heisenberg chain unless `model` is given): a random state of dtype
+    `sdt`, the Lanczos axpy operands, and each fused group's seed (summed
+    in float32, stored in `sdt`, as the apply does)."""
     import spindynamics_tpu_torch as pt
     from spindynamics_tpu_torch.ops import kron_group as kg
     from spindynamics_tpu_torch.ops.sector_kron import (
         apply_H_sector_kron, make_sector_kron_layout)
     from spindynamics_tpu_torch.solvers.blockvec import bv_random
 
-    m = pt.heisenberg_chain(L, nup=L // 2)
+    m = pt.heisenberg_chain(L, nup=L // 2) if model is None else model
     lay = make_sector_kron_layout(m, m.kron_splits)
     H = pt.KronHamiltonian(lay, dtype=torch.float32, device=dev)
     tables, calls = H.tables, H.calls
@@ -280,40 +307,64 @@ def _k1_inputs(L, dev, sdt=torch.float32):
     return m, lay, H, bv, args
 
 
+def _pow2(x):
+    """x (as float32) is 0 or a power of two: a bf16 state times x is a
+    bf16 (kron_tile.cuh segment())."""
+    return float(np.frexp(np.float32(x))[0]) in (0.5, -0.5, 0.0)
+
+
 def _group_work(call, seeded, planes=1, state_bytes=4, rows=None):
-    """(bytes, flops) of one fused group's kernel launch: the group's own
-    tensor read and written once (cross sources are other groups' tensors,
-    counted with their own group), the seed and the tables read once, and
-    the matrix products of the hi-local terms. K2 (planes=2) also reads
-    prev and acc and writes acc, per plane, and runs the 10-flop epilogue.
-    States take `state_bytes` an element (2 for bfloat16); the tables and
-    K2's accumulator are float32 whatever the state. `rows` counts that
+    """(bytes, FMA flops, tensor-core flops, flops with every product on
+    the FMAs, product flops, tensor-core product flops) of one fused
+    group's kernel launch: the group's own tensor read and written once
+    (cross sources are other groups' tensors, counted with their own
+    group), the seed and the tables read once (an exactly-bf16 table as its
+    bf16 copy), and the matrix products of the hi-local terms on the route
+    each segment takes (kron_tile.cuh segment()): a segment whose table is
+    exactly bf16 runs on the tensor cores, twice for a float32 state (the
+    hi/lo split) and once for a bfloat16 state (a bfloat16 state under a
+    lo|mid value that is not a power of two takes the FMAs); every other
+    segment runs float32 FMAs. K2 (planes=2) runs the products per plane,
+    also reads prev and acc and writes acc, per plane, and runs the 10-flop
+    epilogue. States take `state_bytes` an element (2 for bfloat16); D1-D3
+    and K2's accumulator are float32 whatever the state. `rows` counts that
     many hi rows instead of the call's (a shard's last block: its real
     rows, not the zero padding)."""
     ch, cmp, clp = call.shape
     if rows is not None:
         ch = rows
     n = ch * cmp * clp
-    flops = 0
-    tab = 0
+    passes = 1 if state_bytes == 2 else 2
+    e_lo, e_mid, e_cross = call.exact
+    fma = tc = tc1 = prod = tab = 0
+
+    def seg(flops, size, exact, pow2=True):
+        nonlocal fma, tc, tc1, prod, tab
+        prod += flops
+        on_tc = exact and (state_bytes == 4 or pow2)
+        tab += (2 if exact else 4) * size
+        if on_tc:
+            tc += passes * flops
+            tc1 += flops
+        else:
+            fma += flops
+
     if call.W_lo is not None:
-        flops += 2 * n * clp
-        tab += clp * clp
+        seg(2 * n * clp, clp * clp, e_lo)
     if call.W_mid_T is not None:
-        flops += 2 * n * cmp
-        tab += cmp * cmp
-    for (_, r0, c0, ln, val), (_, cmps, clps) in zip(call.cross,
-                                                     call.cross_shapes):
-        flops += 2 * ch * ln * clps * clp
-        tab += clps * clp
+        seg(2 * n * cmp, cmp * cmp, e_mid)
+    for (_, r0, c0, ln, val), (_, cmps, clps), ex in zip(
+            call.cross, call.cross_shapes, e_cross):
+        seg(2 * ch * ln * clps * clp, clps * clp, ex, _pow2(val))
     for t in (call.D1, call.D2, call.D3):
-        tab += 0 if t is None else t.numel()
+        tab += 0 if t is None else 4 * t.numel()
     sd = 1 if seeded else 0
     if planes == 1:
-        return state_bytes * n * (2 + sd) + 4 * tab, flops + 2 * n
+        return (state_bytes * n * (2 + sd) + tab, fma + 2 * n, tc,
+                prod + 2 * n, prod, tc1)
     # per plane: T, prev and the seed in, next out (state); acc in and out
-    return (2 * n * (state_bytes * (3 + sd) + 8) + 4 * tab,
-            2 * flops + 2 * n * 10)
+    return (2 * n * (state_bytes * (3 + sd) + 8) + tab, 2 * fma + 20 * n,
+            2 * tc, 2 * prod + 20 * n, 2 * prod, 2 * tc1)
 
 
 def phase_k1(L, dev):
@@ -323,20 +374,7 @@ def phase_k1(L, dev):
     from spindynamics_tpu_torch.ops import kron_group as kg
 
     m, lay, H, bv, args = _k1_inputs(L, dev)
-    abs_err = rel_err = 0.0
-    for (T, seed, seed_ax, srcs, srcsh, c) in args:
-        for sd in (seed, seed_ax):
-            got = kg.kron_group_apply(T, sd, srcs, srcsh, c)
-            want = kg.kron_group_apply_reference(T, sd, srcs, srcsh, c)
-            torch.cuda.synchronize()
-            (_, _, _, ch, cm, cl, cmp, clp) = lay.groups[c.gi]
-            if got[:, cm:, :].any() or got[:, :, cl:].any():
-                raise RuntimeError(f"L={L} group {c.gi}: pad slots not 0")
-            d = float((got - want).abs().max())
-            abs_err = max(abs_err, d)
-            rel_err = max(rel_err, d / max(float(want.abs().max()), 1e-30))
-    if not rel_err <= 1e-5:
-        raise RuntimeError(f"L={L}: K1 vs plain rel err {rel_err:.3e} > 1e-5")
+    abs_err, rel_err = _k1_check(L, lay, args)
 
     def run(fn):
         def go():
@@ -358,13 +396,193 @@ def phase_k1(L, dev):
           f"K1 {k_ms2:.3f} ms, plain {p_ms2:.3f} ms | full apply: "
           f"KronHamiltonian(fused) {full_k:.3f} ms, plain blocks apply "
           f"{full_p:.3f} ms")
-    work = [_group_work(c, seed is not None)
-            for (_, seed, _, _, _, c) in args]
-    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
-    print(f"k1 L={L}: kernel part moves {sum(w[0] for w in work) / 1e9:.3f} "
-          f"GB and does {sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound "
-          f"{bound[0]:.3f} ms by {bound[1]}")
-    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound
+    bound, bound_fma, gb, gf, gtc = _bounds(
+        [_group_work(c, seed is not None) for (_, seed, _, _, _, c) in args])
+    print(f"k1 L={L}: kernel part moves {gb:.3f} GB and does {gf:.1f} GFLOP "
+          f"of products ({gtc:.1f} of them per pass on the tensor cores, two "
+          f"passes): bound {bound[0]:.3f} ms by {bound[1]} on the routes taken "
+          f"(FMA route: {bound_fma[0]:.3f} ms by {bound_fma[1]})")
+    return (abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound,
+            bound_fma)
+
+
+def _k1_check(L, lay, args, tol=1e-5):
+    """Every launch of `args` (_k1_inputs) with its seed and its axpy seed
+    against the plain version on the same tensors: max|d|/max|y| <= tol,
+    pad slots exactly 0, and a second launch on the same inputs identical
+    in every byte. Returns (max|d|, max|d|/max|y|)."""
+    from spindynamics_tpu_torch.ops import kron_group as kg
+
+    abs_err = rel_err = 0.0
+    for (T, seed, seed_ax, srcs, srcsh, c) in args:
+        for sd in (seed, seed_ax):
+            got = kg.kron_group_apply(T, sd, srcs, srcsh, c)
+            again = kg.kron_group_apply(T, sd, srcs, srcsh, c)
+            want = kg.kron_group_apply_reference(T, sd, srcs, srcsh, c)
+            torch.cuda.synchronize()
+            (_, _, _, ch, cm, cl, cmp, clp) = lay.groups[c.gi]
+            if got[:, cm:, :].any() or got[:, :, cl:].any():
+                raise RuntimeError(f"L={L} group {c.gi}: pad slots not 0")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"L={L} group {c.gi}: two K1 launches on "
+                                   "the same inputs differ")
+            d = float((got - want).abs().max())
+            abs_err = max(abs_err, d)
+            rel_err = max(rel_err, d / max(float(want.abs().max()), 1e-30))
+    if not rel_err <= tol:
+        raise RuntimeError(f"L={L}: K1 vs plain rel err {rel_err:.3e} > "
+                           f"{tol}")
+    return abs_err, rel_err
+
+
+def _call_as(call, exact=None, tile_rows=None):
+    """A copy of a kernel call with its descriptor rebuilt: `exact=False`
+    clears every exactness flag (the same group, tables and inputs with
+    every segment on the float32 FMAs, the route a table that is not
+    exactly bf16 takes), `tile_rows` fixes the output tile's height (32 or
+    64; 0 is the kernel's rule)."""
+    import copy
+
+    c = copy.copy(call)
+    if exact is False:
+        c.exact = (False, False, (False,) * len(call.cross))
+    if tile_rows is not None:
+        c.tile_rows = tile_rows
+    c._desc = c._desc_device = c.term_desc = None
+    return c
+
+
+def _fma_call(call):
+    return _call_as(call, exact=False)
+
+
+def phase_kron_tiles(L, dev):
+    """(--kron-tiles) K1's and K2's time at L with 32- and 64-row output
+    tiles against the kernel's rule (kron_tile.cuh tile_rows), on the main
+    path's launches: every result identical in every byte to the rule's."""
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
+    from spindynamics_tpu_torch.solvers import kron_evolve as ke
+
+    _, lay, _, _, args = _k1_inputs(L, dev)
+    me = _evolve_model(L)
+    lay2 = make_sector_kron_layout(me, me.kron_splits)
+    planes = ke.kron_planes_matvec_fn(lay2, device=dev)
+    _, _, args2 = _k2_inputs(lay2, planes, dev, torch.float32, L)
+    scal = (0.083, -0.41, 0.37, -0.62)
+    rows = {}
+    for bm in (0, 32, 64, 0):
+        a1 = [(T, sd, srcs, srcsh, _call_as(c, tile_rows=bm))
+              for (T, sd, _, srcs, srcsh, c) in args]
+        a2 = [(*a[:6], _call_as(a[6], tile_rows=bm)) for a in args2]
+        got = [kg.kron_group_apply(*a) for a in a1]
+        if bm == 0 and "ref" not in rows:
+            rows["ref"] = got
+        elif not all(torch.equal(x, y) for x, y in zip(got, rows["ref"])):
+            raise RuntimeError(f"K1 with {bm}-row tiles differs from the rule")
+        del got
+        k1 = _event_ms(lambda: [kg.kron_group_apply(*a) for a in a1])
+        k2 = _event_ms(lambda: [ct.cheb_term_apply(*a, scal) for a in a2])
+        rows.setdefault(bm, []).append((k1, k2))
+    print(f"kron-tiles L={L}: K1 / K2 ms (median of 20) with 32-row tiles "
+          f"{rows[32][0][0]:.3f} / {rows[32][0][1]:.3f}, 64-row "
+          f"{rows[64][0][0]:.3f} / {rows[64][0][1]:.3f}, the rule "
+          + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in rows[0])
+          + " | K1 results identical in every byte")
+
+
+def phase_k1_fma(L, dev):
+    """K1's FMA route on the card. (a) The XXZ chain with Jxy = 0.3 at L,
+    whose tables (W_lo, W_mid and the lo|mid factors) are not exactly bf16:
+    every fused group against the plain version at K1's float32 limit, pads
+    0, repeats identical. (b) The main model's K1 launches at L and the
+    evolve model's K2 launches with every segment forced onto the FMAs
+    (_fma_call), timed in turns with the tensor-core route on the same
+    inputs, and held to it (1e-5 of max|y|). Returns {"xxz03": (max|d|,
+    max rel), "k1": (fma ms, tc ms, FMA-route bound), "k2": (...)}."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
+    from spindynamics_tpu_torch.solvers import kron_evolve as ke
+
+    m = pt.xxz_chain(L, Jxy=0.3, Jz=0.5, nup=L // 2)
+    _, lay, H, _, args = _k1_inputs(L, dev, model=m)
+    n_fma = sum(not c.exact[0] for (*_, c) in args if c.W_lo is not None)
+    if n_fma == 0:
+        raise RuntimeError("Jxy=0.3: no W_lo segment took the FMA route")
+    x_abs, x_rel = _k1_check(L, lay, args)
+    x_ms = _event_ms(lambda: [kg.kron_group_apply(T, sd, srcs, srcsh, c)
+                              for (T, sd, _, srcs, srcsh, c) in args])
+    del H, args
+
+    # (b) K1: the main model, both routes on the same launches
+    _, lay, _, _, args = _k1_inputs(L, dev)
+    fargs = [(T, sd, srcs, srcsh, _fma_call(c))
+             for (T, sd, _, srcs, srcsh, c) in args]
+    rel = 0.0
+    for (T, sd, srcs, srcsh, c), a in zip(fargs, args):
+        y_f = kg.kron_group_apply(T, sd, srcs, srcsh, c)
+        y_t = kg.kron_group_apply(T, sd, srcs, srcsh, a[5])
+        rel = max(rel, float((y_f - y_t).abs().max())
+                  / max(float(y_t.abs().max()), 1e-30))
+    if not rel <= 1e-5:
+        raise RuntimeError(f"K1 FMA route vs tensor cores: {rel:.3e} > 1e-5")
+
+    def k1(fma):
+        def go():
+            for (T, sd, srcs, srcsh, c), a in zip(fargs, args):
+                kg.kron_group_apply(T, sd, srcs, srcsh, c if fma else a[5])
+        return go
+
+    t1, f1, f1b, t1b = (_event_ms(k1(x)) for x in (False, True, True, False))
+    b1 = _bounds([_group_work(c, sd is not None)
+                  for (_, sd, _, _, c) in fargs])[0]
+    del args, fargs
+
+    # K2: the evolve model, both routes on the same launches
+    me = _evolve_model(L)
+    lay = make_sector_kron_layout(me, me.kron_splits)
+    planes = ke.kron_planes_matvec_fn(lay, device=dev)
+    _, _, args2 = _k2_inputs(lay, planes, dev, torch.float32, L)
+    scal = (0.083, -0.41, 0.37, -0.62)
+    rel2 = 0.0
+    for (T, pv, ac, seed, srcs, srcsh, call) in args2:
+        a1 = tuple(x.clone() for x in ac)
+        a2 = tuple(x.clone() for x in ac)
+        y_f = ct.cheb_term_apply(T, pv, a1, seed, srcs, srcsh,
+                                 _fma_call(call), scal)
+        y_t = ct.cheb_term_apply(T, pv, a2, seed, srcs, srcsh, call, scal)
+        for x, y in zip((*y_f, *a1), (*y_t, *a2)):
+            rel2 = max(rel2, float((x - y).abs().max())
+                       / max(float(y.abs().max()), 1e-30))
+    if not rel2 <= 1e-5:
+        raise RuntimeError(f"K2 FMA route vs tensor cores: {rel2:.3e} > 1e-5")
+    fcalls = [_fma_call(a[6]) for a in args2]
+
+    def k2(fma):
+        def go():
+            for a, fc in zip(args2, fcalls):
+                ct.cheb_term_apply(*a[:6], fc if fma else a[6], scal)
+        return go
+
+    t2, f2, f2b, t2b = (_event_ms(k2(x)) for x in (False, True, True, False))
+    b2 = _bounds([_group_work(fc, a[3] is not None, planes=2)
+                  for a, fc in zip(args2, fcalls)])[0]
+    print(f"k1-fma L={L}: XXZ Jxy=0.3 ({n_fma} W_lo segments on the FMAs): "
+          f"max|d|/max|y| {x_rel:.3e} (<= 1e-5), max|d| {x_abs:.3e}, pads 0, "
+          f"launches repeat bit for bit, K1 part {x_ms:.3f} ms | the main "
+          f"model's K1 launches, every segment forced onto the FMAs, against "
+          f"the tensor-core route on the same inputs: max|d|/max|y| "
+          f"{rel:.3e} (<= 1e-5); ms (median of 20, tc/fma/fma/tc) "
+          f"{t1:.3f} / {f1:.3f} / {f1b:.3f} / {t1b:.3f}, FMA-route bound "
+          f"{b1[0]:.3f} ms by {b1[1]} | the evolve model's K2 launches the "
+          f"same way: max|d|/max|y| {rel2:.3e} (<= 1e-5); ms {t2:.3f} / "
+          f"{f2:.3f} / {f2b:.3f} / {t2b:.3f}, FMA-route bound {b2[0]:.3f} ms "
+          f"by {b2[1]}")
+    return {"xxz03": (x_abs, x_rel), "k1": (min(f1, f1b), min(t1, t1b), b1),
+            "k2": (min(f2, f2b), min(t2, t2b), b2)}
 
 
 def _evolve_model(L):
@@ -400,7 +618,10 @@ def phase_k2(L, dev):
     for (T, pv, ac, seed, srcs, srcsh, call) in args:
         acc_k = tuple(x.clone() for x in ac)
         acc_p = tuple(x.clone() for x in ac)
+        acc_r = tuple(x.clone() for x in ac)
         got = ct.cheb_term_apply(T, pv, acc_k, seed, srcs, srcsh, call, scal)
+        again = ct.cheb_term_apply(T, pv, acc_r, seed, srcs, srcsh, call,
+                                   scal)
         want = ct.cheb_term_apply_reference(T, pv, acc_p, seed, srcs, srcsh,
                                             call, scal)
         torch.cuda.synchronize()
@@ -408,6 +629,10 @@ def phase_k2(L, dev):
         for x in got:
             if x[:, cm:, :].any() or x[:, :, cl:].any():
                 raise RuntimeError(f"L={L} group {call.gi}: pad slots not 0")
+        if not all(torch.equal(x, y) for x, y in zip((*got, *acc_k),
+                                                     (*again, *acc_r))):
+            raise RuntimeError(f"L={L} group {call.gi}: two K2 launches on "
+                               "the same inputs differ")
         for x, y in zip((*got, *acc_k), (*want, *acc_p)):
             d = float((x - y).abs().max())
             abs_err = max(abs_err, d)
@@ -425,8 +650,8 @@ def phase_k2(L, dev):
     p_ms = _event_ms(run(ct.cheb_term_apply_reference))
     k_ms2 = _event_ms(run(ct.cheb_term_apply))
     p_ms2 = _event_ms(run(ct.cheb_term_apply_reference))
-    work = [_group_work(a[6], a[3] is not None, planes=2) for a in args]
-    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    bound, bound_fma, gb, gf, gtc = _bounds(
+        [_group_work(a[6], a[3] is not None, planes=2) for a in args])
     del args
     a_inv, b = scal[:2]
     term_f = _event_ms(lambda: ct.cheb_term_fused(
@@ -440,10 +665,12 @@ def phase_k2(L, dev):
           f"{k_ms2:.3f} ms, plain {p_ms2:.3f} ms | whole term (median of "
           f"10): fused (seeds + K2 + tail) {term_f:.3f} ms, unfused (two "
           f"K1 applies + torch combine) {term_p:.3f} ms | K2 part moves "
-          f"{sum(w[0] for w in work) / 1e9:.3f} GB and does "
-          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
-          f"ms by {bound[1]}")
-    return abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound
+          f"{gb:.3f} GB and does {gf:.1f} GFLOP of products ({gtc:.1f} per "
+          f"pass on the tensor cores): bound {bound[0]:.3f} ms by {bound[1]} "
+          f"(FMA route: {bound_fma[0]:.3f} ms by {bound_fma[1]}); launches "
+          f"repeat bit for bit")
+    return (abs_err, rel_err, min(k_ms, k_ms2), min(p_ms, p_ms2), bound,
+            bound_fma)
 
 
 def _lift(x):
@@ -482,6 +709,10 @@ def phase_k1_bf16(L, dev):
     for (T, seed, seed_ax, srcs, srcsh, c) in args:
         for sd in (seed, seed_ax):
             got = kg.kron_group_apply(T, sd, srcs, srcsh, c)
+            if not torch.equal(got, kg.kron_group_apply(T, sd, srcs, srcsh,
+                                                        c)):
+                raise RuntimeError(f"L={L} group {c.gi}: two K1 bf16 "
+                                   "launches on the same inputs differ")
             y32 = kg.kron_group_apply_reference(
                 T.float(), _lift(sd), _lift(srcs), _lift(srcsh), c)
             torch.cuda.synchronize()
@@ -494,7 +725,7 @@ def phase_k1_bf16(L, dev):
             d, r = _one_rounding(got, y32)
             abs_err, worst = max(abs_err, d), max(worst, r)
             del got, y32
-    if kg.kernel_launch_count(bf16) - n0 != 2 * len(args):
+    if kg.kernel_launch_count(bf16) - n0 != 4 * len(args):
         raise RuntimeError("K1's bf16 launches were not counted as bf16")
     if not worst <= 1.0:
         raise RuntimeError(f"L={L}: K1 bf16 is {worst:.2f}x its one-rounding "
@@ -514,20 +745,21 @@ def phase_k1_bf16(L, dev):
     k322 = _event_ms(run(kg.kron_group_apply, args32))
     full_b = _event_ms(lambda: H(bv))
     full_32 = _event_ms(lambda: H32(bv32))
-    work = [_group_work(c, seed is not None, state_bytes=2)
-            for (_, seed, _, _, _, c) in args]
-    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    bound, bound_fma, gb, gf, gtc = _bounds(
+        [_group_work(c, seed is not None, state_bytes=2)
+         for (_, seed, _, _, _, c) in args])
     print(f"k1-bf16 L={L}: {len(args)}/{len(lay.groups)} groups | worst "
           f"|d| / (2^-8 |y| + 1e-5 max|y|) {worst:.3f} (<= 1) against the "
           f"plain float32 value, max|d| {abs_err:.3e}, pads 0 | kernel part "
           f"of one apply (median of 20, bf16/f32/plain/bf16/f32): K1 bf16 "
           f"{kb:.3f} ms, K1 f32 {k32:.3f} ms, plain bf16 {pb:.3f} ms, K1 "
           f"bf16 {kb2:.3f} ms, K1 f32 {k322:.3f} ms | full apply: bf16 "
-          f"{full_b:.3f} ms, f32 {full_32:.3f} ms | moves "
-          f"{sum(w[0] for w in work) / 1e9:.3f} GB and does "
-          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
-          f"ms by {bound[1]}")
-    return abs_err, worst, min(kb, kb2), pb, bound
+          f"{full_b:.3f} ms, f32 {full_32:.3f} ms | moves {gb:.3f} GB and "
+          f"does {gf:.1f} GFLOP of products ({gtc:.1f} on the tensor cores, "
+          f"one pass): bound {bound[0]:.3f} ms by {bound[1]} (FMA route: "
+          f"{bound_fma[0]:.3f} ms by {bound_fma[1]}); launches repeat bit for "
+          f"bit")
+    return abs_err, worst, min(kb, kb2), pb, bound, bound_fma
 
 
 def _k2_inputs(lay, planes, dev, sdt, seed):
@@ -568,7 +800,14 @@ def phase_k2_bf16(L, dev):
     for (T, pv, ac, seed, srcs, srcsh, call) in args:
         acc_k = tuple(x.clone() for x in ac)
         acc_p = tuple(x.clone() for x in ac)
+        acc_r = tuple(x.clone() for x in ac)
         got = ct.cheb_term_apply(T, pv, acc_k, seed, srcs, srcsh, call, scal)
+        again = ct.cheb_term_apply(T, pv, acc_r, seed, srcs, srcsh, call,
+                                   scal)
+        if not all(torch.equal(x, y) for x, y in zip((*got, *acc_k),
+                                                     (*again, *acc_r))):
+            raise RuntimeError(f"L={L} group {call.gi}: two K2 bf16 launches "
+                               "on the same inputs differ")
         x32 = ct.cheb_term_apply_reference(
             _lift(T), _lift(pv), acc_p, _lift(seed), _lift(srcs),
             _lift(srcsh), call, scal)
@@ -585,8 +824,8 @@ def phase_k2_bf16(L, dev):
         for x, y in zip(acc_k, acc_p):
             acc_rel = max(acc_rel, float((x - y).abs().max())
                           / max(float(y.abs().max()), 1e-30))
-        del got, x32, acc_k, acc_p
-    if ct.kernel_launch_count(bf16) - n0 != len(args):
+        del got, again, x32, acc_k, acc_p, acc_r
+    if ct.kernel_launch_count(bf16) - n0 != 2 * len(args):
         raise RuntimeError("K2's bf16 launches were not counted as bf16")
     if not worst <= 1.0:
         raise RuntimeError(f"L={L}: K2 bf16 next is {worst:.2f}x its "
@@ -606,9 +845,9 @@ def phase_k2_bf16(L, dev):
     pb = _event_ms(run(ct.cheb_term_apply_reference, args), reps=10)
     kb2 = _event_ms(run(ct.cheb_term_apply, args))
     k322 = _event_ms(run(ct.cheb_term_apply, args32))
-    work = [_group_work(a[6], a[3] is not None, planes=2, state_bytes=2)
-            for a in args]
-    bound = _bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    bound, bound_fma, gb, gf, gtc = _bounds(
+        [_group_work(a[6], a[3] is not None, planes=2, state_bytes=2)
+         for a in args])
     del args, args32
     term_b = _event_ms(lambda: ct.cheb_term_fused(
         lay, H.tables, H.calls, fused, *pairs, scal), reps=10)
@@ -622,10 +861,11 @@ def phase_k2_bf16(L, dev):
           f"K2 bf16 {kb:.3f} ms, K2 f32 {k32:.3f} ms, plain bf16 {pb:.3f} "
           f"ms, K2 bf16 {kb2:.3f} ms, K2 f32 {k322:.3f} ms | whole term "
           f"(median of 10): bf16 {term_b:.3f} ms, f32 {term_32:.3f} ms | "
-          f"moves {sum(w[0] for w in work) / 1e9:.3f} GB and does "
-          f"{sum(w[1] for w in work) / 1e9:.1f} GFLOP: bound {bound[0]:.3f} "
-          f"ms by {bound[1]}")
-    return abs_err, worst, min(kb, kb2), pb, bound
+          f"moves {gb:.3f} GB and does {gf:.1f} GFLOP of products ({gtc:.1f} "
+          f"on the tensor cores, one pass): bound {bound[0]:.3f} ms by "
+          f"{bound[1]} (FMA route: {bound_fma[0]:.3f} ms by {bound_fma[1]}); "
+          f"launches repeat bit for bit")
+    return abs_err, worst, min(kb, kb2), pb, bound, bound_fma
 
 
 def phase_evolve_oracle(dev, sdt=torch.float32):
@@ -853,22 +1093,15 @@ def phase_kron_obs(L, dev, psi, E0, info):
 
 def kron_to_flat(psi, lay, dev):
     """The flat vector of 2^L amplitudes (bit i = site i) of a kron
-    BlockVec: rank (h, m, l) of a group holds the amplitude of the state
-    whose hi, mid and lo bit fields are the parts' rank-ordered states."""
+    BlockVec: kron_order_states names the basis state of every slot of the
+    kron-order vector (tile pads excepted)."""
     from spindynamics_tpu_torch.ops import sector_kron as sk
 
-    L1, L2, L3 = lay.splits
-    perms = sk.kron_part_perms(lay.splits)
+    states = sk.kron_order_states(lay.L, lay.nup, lay.splits, lay.pads)
+    real = torch.as_tensor(states != sk.PAD_SENTINEL, device=dev)
+    idx = torch.as_tensor(states.astype(np.int64), device=dev)
     out = torch.zeros(1 << lay.L, dtype=psi.dtype, device=dev)
-    for x, (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in zip(psi.leaves,
-                                                         lay.groups):
-        hi, mid, lo = (torch.as_tensor(
-            sk._perm_sector_states(Lp, k, pm).astype(np.int64), device=dev)
-            for Lp, k, pm in ((L3, k_h, perms[2]), (L2, k_m, perms[1]),
-                              (L1, k_l, perms[0])))
-        idx = ((hi[:, None, None] << (L1 + L2)) | (mid[None, :, None] << L1)
-               | lo[None, None, :])
-        out[idx.reshape(-1)] = x[:hi.shape[0], :cm, :cl].reshape(-1)
+    out[idx[real]] = sk.blocks_to_flat(psi.leaves, lay)[real]
     return out
 
 
@@ -1388,13 +1621,14 @@ def _crossw_work(call, seeded, state_bytes, real):
     rows (the last shard's zero padding rows are no work): the local
     block's own work (_group_work) plus, per window, the rows of its mid
     runs read once and one multiply-add per element of them."""
-    nb, fl = _group_work(call, seeded, state_bytes=state_bytes, rows=real)
+    w = list(_group_work(call, seeded, state_bytes=state_bytes, rows=real))
     clp = call.shape[2]
     for (_, mids) in call.crossw:
         run_rows = sum(lna for (_, _, lna, _) in mids)
-        nb += state_bytes * real * run_rows * clp
-        fl += 2 * real * run_rows * clp
-    return nb, fl
+        w[0] += state_bytes * real * run_rows * clp
+        w[1] += 2 * real * run_rows * clp
+        w[3] += 2 * real * run_rows * clp
+    return tuple(w)
 
 
 def phase_k1_crossw(L, D, dev, sdt):
@@ -1417,6 +1651,10 @@ def phase_k1_crossw(L, D, dev, sdt):
     n0 = kg.kernel_launch_count(sdt, crossw=True)
     for (T, seed, srcs, srcsh, w, c, gi, i) in args:
         got = kg.kron_group_apply(T, seed, srcs, srcsh, c, w)
+        if not torch.equal(got, kg.kron_group_apply(T, seed, srcs, srcsh, c,
+                                                    w)):
+            raise RuntimeError(f"L={L} D={D} group {gi} shard {i}: two "
+                               "crossw launches on the same inputs differ")
         want = kg.kron_group_apply_reference(
             _lift(T), _lift(seed), _lift(srcs), _lift(srcsh), c, _lift(w))
         torch.cuda.synchronize()
@@ -1434,7 +1672,7 @@ def phase_k1_crossw(L, D, dev, sdt):
             d = float((got - want).abs().max())
             r = d / max(float(want.abs().max()), 1e-30) / 1e-5
         abs_err, worst = max(abs_err, d), max(worst, r)
-    if kg.kernel_launch_count(sdt, crossw=True) - n0 != len(args):
+    if kg.kernel_launch_count(sdt, crossw=True) - n0 != 2 * len(args):
         raise RuntimeError("the crossw launches were not counted")
     if not worst <= 1.0:
         raise RuntimeError(
@@ -1461,12 +1699,11 @@ def phase_k1_crossw(L, D, dev, sdt):
     k_ms2 = _event_ms(run(kg.kron_group_apply))
     g_ms = _graph_ms(run(kg.kron_group_apply))
     gu_ms = _graph_ms(run_unsharded)
-    work = [_crossw_work(c, seed is not None, 2 if bf16 else 4,
-                         max(0, min(spec.b[gi],
-                                    lay.groups[gi][3] - i * spec.b[gi])))
-            for (_, seed, _, _, _, c, gi, i) in args]
-    nb, fl = sum(w[0] for w in work), sum(w[1] for w in work)
-    bound = _bound(nb, fl)
+    bound, bound_fma, gb, gf, gtc = _bounds(
+        [_crossw_work(c, seed is not None, 2 if bf16 else 4,
+                      max(0, min(spec.b[gi],
+                                 lay.groups[gi][3] - i * spec.b[gi])))
+         for (_, seed, _, _, _, c, gi, i) in args])
     lim = ("|d| / (2^-8 |y| + 1e-5 max|y|) against the plain float32 value"
            if bf16 else "max|d| / (1e-5 max|y|)")
     print(f"k1-crossw L={L} D={D} {str(sdt).split('.')[-1]}: {len(args)} "
@@ -1478,9 +1715,11 @@ def phase_k1_crossw(L, D, dev, sdt):
           f"{len(uargs)} groups {u_ms:.3f} ms, crossw {k_ms2:.3f} ms | the "
           f"same launches replayed from a CUDA graph (no host in the "
           f"loop): crossw {g_ms:.3f} ms, K1 unsharded {gu_ms:.3f} ms | "
-          f"moves {nb / 1e9:.3f} GB and does {fl / 1e9:.1f} GFLOP: bound "
-          f"{bound[0]:.3f} ms by {bound[1]}")
-    return abs_err, worst, min(k_ms, k_ms2), p_ms, bound, g_ms
+          f"moves {gb:.3f} GB and does {gf:.1f} GFLOP of products ({gtc:.1f} "
+          f"per pass on the tensor cores): bound {bound[0]:.3f} ms by "
+          f"{bound[1]} (FMA route: {bound_fma[0]:.3f} ms by {bound_fma[1]}); "
+          f"launches repeat bit for bit")
+    return abs_err, worst, min(k_ms, k_ms2), p_ms, bound, g_ms, bound_fma
 
 
 def phase_shard_apply(L, dev):
@@ -1867,6 +2106,7 @@ def main(argv=None):
                          "shard-evolve phases (>= 2)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
+    ap.add_argument("--kron-tiles", action="store_true", dest="kron_tiles")
     args = ap.parse_args(argv)
     if args.L % 2 or not 16 <= args.L <= 32:
         raise SystemExit("--L must be even, 16..32")
@@ -1882,13 +2122,19 @@ def main(argv=None):
 
     phase_build()
     phase_k1(16, dev)
-    abs_err, rel_err, k_ms, p_ms, bound1 = phase_k1(args.L, dev)
+    abs_err, rel_err, k_ms, p_ms, bound1, fbound1 = phase_k1(args.L, dev)
     phase_k2(16, dev)
-    abs_err2, rel_err2, k2_ms, p2_ms, bound2 = phase_k2(args.L, dev)
+    abs_err2, rel_err2, k2_ms, p2_ms, bound2, fbound2 = phase_k2(args.L, dev)
     phase_k1_bf16(16, dev)
-    b1_err, _, b1_ms, b1_plain, b1_bound = phase_k1_bf16(args.L, dev)
+    b1_err, _, b1_ms, b1_plain, b1_bound, b1_fbound = phase_k1_bf16(args.L,
+                                                                    dev)
     phase_k2_bf16(16, dev)
-    b2_err, _, b2_ms, b2_plain, b2_bound = phase_k2_bf16(args.L, dev)
+    b2_err, _, b2_ms, b2_plain, b2_bound, b2_fbound = phase_k2_bf16(args.L,
+                                                                    dev)
+    phase_k1_fma(16, dev)
+    fma = phase_k1_fma(args.L, dev)
+    if args.kron_tiles:
+        phase_kron_tiles(args.L, dev)
     phase_oracle(dev)
     launches, psi, E0, kinfo, S_main = phase_main(args.L, dev)
     if args.profile:
@@ -1937,6 +2183,10 @@ def main(argv=None):
         "bound_by": bound1[1],
         "library_ms": None,
         "L": args.L,
+        "fma_route_bound_ms": fbound1[0],
+        "fma_ms": fma["k1"][0],
+        "tc_ms_beside_fma": fma["k1"][1],
+        "xxz_jxy03_max_abs_err": fma["xxz03"][0],
     }, {
         "name": "K2 fused Chebyshev term",
         "route": "cuda",
@@ -1950,6 +2200,9 @@ def main(argv=None):
         "bound_by": bound2[1],
         "library_ms": None,
         "L": args.L,
+        "fma_route_bound_ms": fbound2[0],
+        "fma_ms": fma["k2"][0],
+        "tc_ms_beside_fma": fma["k2"][1],
     }, {
         "name": "K1 fused kron group apply (bf16 state)",
         "route": "cuda",
@@ -1963,6 +2216,7 @@ def main(argv=None):
         "bound_by": b1_bound[1],
         "library_ms": None,
         "L": args.L,
+        "fma_route_bound_ms": b1_fbound[0],
     }, {
         "name": "K2 fused Chebyshev term (bf16 state)",
         "route": "cuda",
@@ -1976,6 +2230,7 @@ def main(argv=None):
         "bound_by": b2_bound[1],
         "library_ms": None,
         "L": args.L,
+        "fma_route_bound_ms": b2_fbound[0],
     }, {
         "name": "K3 fused matvec (float32 state)",
         "route": "cuda",
@@ -2014,6 +2269,8 @@ def main(argv=None):
         "bf16_bound_ms": cwb[4][0],
         "graph_replay_ms": cw[5],
         "bf16_graph_replay_ms": cwb[5],
+        "fma_route_bound_ms": cw[6][0],
+        "bf16_fma_route_bound_ms": cwb[6][0],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,14 +18,16 @@
 // Design. K1's output-tile gather (kron_tile.cuh; kron_group.cu explains
 // it), with both planes in one block: the accumulator update mixes x_re and
 // x_im at the same element, so one thread must hold both. Each block keeps
-// two register accumulators (re, im: 32 floats a thread) and runs each K
-// segment once per plane, then the epilogue computes x and the complex
-// multiply-add per element. acc is read and written by the same thread at
-// the same element (the in->out alias of pallas_cheb.py:232), so the update
-// is in place and race-free. next may be prev's storage (ops/cheb_term.py
-// reuses it from the second fused term of a step on): each element of prev
-// is read by the thread that then writes next there, and by no other. T
-// and the cross sources are read by many blocks and are never written.
+// two register accumulators (re, im) and runs each K segment once per plane
+// on the segment's route (bf16 tensor cores with the hi/lo state split where
+// the table is exactly bf16, float32 FMAs elsewhere), stages both into
+// shared memory, and the epilogue computes x and the complex multiply-add per
+// element. acc is read and written by the same thread at the same element
+// (the in->out alias of pallas_cheb.py:232), so the update is in place and
+// race-free. next may be prev's storage (ops/cheb_term.py reuses it from
+// the second fused term of a step on): each element of prev is read by the
+// thread that then writes next there, and by no other. T and the cross
+// sources are read by many blocks and are never written.
 //
 // State types. A template on the state's element type, like K1. With
 // bfloat16 (the TPU kernel's state_dtype=bfloat16) T, prev, the seeds and
@@ -33,11 +35,15 @@
 // to nearest even; the accumulator pair stays float and is updated from the
 // unrounded float x (pallas_cheb.py:171-178), in the same operation order.
 //
-// Bound. Twice K1's matrix-product flops per group (two planes) against
-// ~12 state-sized f32 streams (T, prev, acc, seed in; next, acc out, per
-// plane), so it is compute-bound on the CUDA cores like K1. A later PR can
-// share one staged W_lo tile between the planes and move the products to
-// wgmma (see kron_group.cu).
+// Bound. Twice K1's products per group (two planes) against ~12
+// state-sized streams (T, prev, acc, seed in; next, acc out, per plane). On
+// the tensor-core route that is bound by bytes at L=28 and at L=32 alike:
+// at L=28 2.54 GB (0.76 ms at 3.35 TB/s) against 2 x 185 GFLOP of bf16
+// products (0.37 ms at 989 TFLOP/s), at L=32 36.2 GB (10.8 ms) against 2 x
+// 3522 GFLOP (7.1 ms). The design reads each of those streams once per
+// element, in the epilogue, and keeps the products off the FMA units; the
+// two planes still stage the shared tables twice (one W_lo tile for both
+// planes, and fewer launches, are later work).
 //
 // Interface: plain C, loaded with ctypes. ct_launch takes a host pointer to
 // a CtDesc (mirrored by ctypes structures in ops/cheb_term.py) and a
@@ -79,10 +85,10 @@ __device__ __forceinline__ void term_element(
   ai = ai + c.c_i * xr + c.c_r * xi;
 }
 
-template <class S>
-__global__ void __launch_bounds__(NT)
+template <class S, int BM>
+__global__ void __launch_bounds__(NT, 2)
 cheb_term_kernel(const __grid_constant__ CtDesc c) {
-  __shared__ __align__(16) Smem sm;
+  extern __shared__ __align__(16) char smem[];
   const KgDesc& d = c.re;
   const int l0 = blockIdx.x * BL;
   const int m0 = blockIdx.y * BM;
@@ -90,25 +96,35 @@ cheb_term_kernel(const __grid_constant__ CtDesc c) {
 
   const S* T_re = static_cast<const S*>(d.T);
   const S* T_im = static_cast<const S*>(c.T_im);
-  float acc_re[4][4], acc_im[4][4];
-  tile_products(acc_re, sm, d, T_re, [&](int k) { return d.cross[k].src; },
-                h, m0, l0);
-  tile_products(acc_im, sm, d, T_im,
-                [&](int k) { return c.cross_src_im[k]; }, h, m0, l0);
+  Acc<BM> acc_re, acc_im;
+  tile_products<BM>(acc_re, smem, d, T_re,
+                    [&](int k) { return d.cross[k].src; }, h, m0, l0);
+  tile_products<BM>(acc_im, smem, d, T_im,
+                    [&](int k) { return c.cross_src_im[k]; }, h, m0, l0);
+  float* E_re = reinterpret_cast<float*>(smem);
+  float* E_im = E_re + BM * (BL + PADE);
+  stage_acc(acc_re, E_re);
+  stage_acc(acc_im, E_im);
+  __syncthreads();
 
   const float two_ai = 2.f * c.a_inv;
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
   const int l = l0 + tx * 4;
+  constexpr int RPT = BM / 8;   // rows per thread
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ty * RPT + i;
+    const int m = m0 + r;
     if (m >= d.cmp) break;
+    const int e = r * (BL + PADE) + tx * 4;
     float4 tr, ti;
     const float4 hr = hi_local_row(
-        d, acc_re[i], T_re, static_cast<const S*>(d.seed),
+        d, *reinterpret_cast<const float4*>(&E_re[e]), T_re,
+        static_cast<const S*>(d.seed),
         [&](int k) { return d.crossh[k].src; }, h, m, l, tr);
     const float4 hi = hi_local_row(
-        d, acc_im[i], T_im, static_cast<const S*>(c.seed_im),
+        d, *reinterpret_cast<const float4*>(&E_im[e]), T_im,
+        static_cast<const S*>(c.seed_im),
         [&](int k) { return c.crossh_src_im[k]; }, h, m, l, ti);
     const size_t idx = (size_t)h * d.cmp * d.clp + (size_t)m * d.clp + l;
     const float4 pr = ld4(static_cast<const S*>(c.prev_re) + idx);
@@ -131,6 +147,19 @@ cheb_term_kernel(const __grid_constant__ CtDesc c) {
   }
 }
 
+template <class S, int BM>
+int launch_k2(const CtDesc& c, cudaStream_t st) {
+  static bool attr_set = false;
+  return launch(cheb_term_kernel<S, BM>, c, grid_of(c.re, BM),
+                smem_bytes<BM>(2), st, attr_set);
+}
+
+template <class S>
+int launch_k2(const CtDesc& c, cudaStream_t st) {
+  return tile_rows(c.re) == 64 ? launch_k2<S, 64>(c, st)
+                               : launch_k2<S, 32>(c, st);
+}
+
 }  // namespace
 
 extern "C" int ct_desc_size(void) { return (int)sizeof(CtDesc); }
@@ -145,9 +174,6 @@ extern "C" int ct_launch(const CtDesc* desc, void* stream) {
       (d.seed == nullptr) != (c.seed_im == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d.state_type == KG_STATE_F32)
-    cheb_term_kernel<float><<<grid_of(d), NT, 0, st>>>(c);
-  else
-    cheb_term_kernel<__nv_bfloat16><<<grid_of(d), NT, 0, st>>>(c);
-  return (int)cudaGetLastError();
+  return d.state_type == KG_STATE_F32 ? launch_k2<float>(c, st)
+                                      : launch_k2<__nv_bfloat16>(c, st);
 }

@@ -168,10 +168,10 @@ def build_model(
     if layout == "compact":
         raise NotImplementedError(
             "layout='compact' with nup set (the ELL neighbour table) is not "
-            "ported yet: ROADMAP Queue 1, item 11")
+            "ported yet: ROADMAP Queue 1, item 1")
     if layout == "sector_blocked":
         raise NotImplementedError(
-            "layout='sector_blocked' is not ported: ROADMAP Queue 1, item 14 "
+            "layout='sector_blocked' is not ported: ROADMAP Queue 1, item 10 "
             "(a candidate not to port)")
     if layout == "full" and nup is not None:
         raise ValueError("layout='full' takes nup=None; use "

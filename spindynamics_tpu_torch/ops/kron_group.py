@@ -23,6 +23,14 @@ and loaded with ctypes. `kron_group_apply_reference` is its plain torch version:
 wrapper `kron_group_apply` uses it for tensors on the CPU and only there; a
 CUDA tensor launches the kernel or raises.
 
+Each K segment of the kernel's tile (T@W_lo, W_mid^T@T, each lo|mid cross
+term) takes the route its table allows, decided here once per group when
+the plans are built (`bf16_exact`, the TPU kernel's `_bf16_exact`): a table
+that is exactly bf16 is handed to the kernel as a bf16 copy with a flag in
+the descriptor, and the segment runs on the tensor cores with the TPU
+kernel's hi/lo split of the state; any other table stays float32 and the
+segment runs float32 FMAs.
+
 States are float32 or bfloat16 (the JAX package's `state_dtype=bfloat16`
 amplitude mode): with bfloat16 leaves the state, the seed and the cross
 sources are bfloat16 in memory, the tables stay float32, every sum is taken
@@ -53,6 +61,7 @@ from .sector_kron import (
 
 __all__ = [
     "KronHamiltonian",
+    "bf16_exact",
     "apply_H_sector_kron_fused",
     "fused_group_plans",
     "fused_group_set",
@@ -67,6 +76,14 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # host-side fusion plans (numpy, verbatim from the JAX package)
 # ---------------------------------------------------------------------------
+
+
+def bf16_exact(M) -> bool:
+    """True when every entry of M, as float32, is exactly a bfloat16 (dyadic
+    couplings like 1.0 and 0.5 are): the segment of that table runs on the
+    tensor cores with the hi/lo state split, at float32 grade."""
+    M32 = torch.as_tensor(np.asarray(M, np.float32))
+    return bool(torch.equal(M32.to(torch.bfloat16).float(), M32))
 
 
 class _GroupPlan:
@@ -90,6 +107,11 @@ class _GroupPlan:
         # entry of this group took this form
         self.crossh = crossh
         self.crossh_fusable = crossh_fusable
+        # per K segment, the table is exactly bfloat16 (the TPU kernel's
+        # `exact`, pallas_kron.py:530-532): (W_lo, W_mid, (A per cross))
+        self.exact = (W_lo is not None and bf16_exact(W_lo),
+                      W_mid_T is not None and bf16_exact(W_mid_T),
+                      tuple(bf16_exact(c[5]) for c in cross))
 
 
 def fused_group_plans(layout: SectorKronLayout):
@@ -228,7 +250,8 @@ class _KgCross(ctypes.Structure):
     _fields_ = [("src", ctypes.c_void_p), ("A", ctypes.c_void_p),
                 ("cmp_s", ctypes.c_int), ("clp_s", ctypes.c_int),
                 ("r0", ctypes.c_int), ("c0", ctypes.c_int),
-                ("ln", ctypes.c_int), ("val", ctypes.c_float)]
+                ("ln", ctypes.c_int), ("val", ctypes.c_float),
+                ("exact", ctypes.c_int)]
 
 
 class _KgMid(ctypes.Structure):
@@ -259,6 +282,8 @@ class _KgDesc(ctypes.Structure):
                 ("clp", ctypes.c_int),
                 ("n_cross", ctypes.c_int), ("n_crossh", ctypes.c_int),
                 ("state_type", ctypes.c_int), ("n_crossw", ctypes.c_int),
+                ("wlo_exact", ctypes.c_int), ("wmid_exact", ctypes.c_int),
+                ("tile_rows", ctypes.c_int),
                 ("cross", _KgCross * _MAX_CROSS),
                 ("crossh", _KgCrossH * _MAX_CROSSH),
                 ("crossw", _KgCrossW * _MAX_CROSSW)]
@@ -320,9 +345,15 @@ class _GroupCall:
     shifted reads of the source groups (`crossh`)."""
 
     def __init__(self, layout, plan, gt, fuse_crossh, rows=None,
-                 windowed=False):
+                 windowed=False, bf16_memo=None):
         k_h, _, _, ch, _, _, cmp, clp = layout.groups[plan.gi]
         self.gi = plan.gi
+        self.exact = plan.exact
+        # output-tile rows of the launch (32 or 64); 0: the kernel's rule
+        self.tile_rows = 0
+        # bfloat16 copies of the exact tables, shared between the calls of
+        # one module (keyed by the float table's id)
+        self._bf16 = {} if bf16_memo is None else bf16_memo
         self.shape = (ch if rows is None else rows, cmp, clp)
         self.D1, self.D2, self.D3 = gt["D1"], gt["D2"], gt["D3"]
         self.W_lo, self.W_mid_T = gt["W_lo"], gt["W_mid_T"]
@@ -377,17 +408,26 @@ class _GroupCall:
                              "takes (kron_tile.cuh KG_MAX_*)")
         d = _KgDesc()
         d.ch, d.cmp, d.clp = ch, cmp, clp
+        d.tile_rows = self.tile_rows
         for name in ("D1", "D2", "D3", "W_lo", "W_mid_T"):
             t = getattr(self, name)
             if t is not None:
                 _check_tensor(t, t.shape, device, f"table {name}")
                 setattr(d, name, t.data_ptr())
+        # an exact table's segment reads its bfloat16 copy (tensor cores)
+        e_lo, e_mid, e_cross = self.exact
+        d.wlo_exact, d.wmid_exact = int(e_lo), int(e_mid)
+        if e_lo:
+            d.W_lo = self._bf16_copy(self.W_lo).data_ptr()
+        if e_mid:
+            d.W_mid_T = self._bf16_copy(self.W_mid_T).data_ptr()
         d.n_cross = len(self.cross)
-        for i, ((_, r0, c0, ln, val), A, (_, cmps, clps)) in enumerate(
-                zip(self.cross, self.A, self.cross_shapes)):
+        for i, ((_, r0, c0, ln, val), A, (_, cmps, clps), ex) in enumerate(
+                zip(self.cross, self.A, self.cross_shapes, e_cross)):
             _check_tensor(A, (clps, clp), device, "table A")
             e = d.cross[i]
-            e.A = A.data_ptr()
+            e.A = (self._bf16_copy(A) if ex else A).data_ptr()
+            e.exact = int(ex)
             e.cmp_s, e.clp_s = cmps, clps
             e.r0, e.c0, e.ln, e.val = r0, c0, ln, val
         d.n_crossh = len(self.crossh)
@@ -408,6 +448,13 @@ class _GroupCall:
                 e.mids[k].lna, e.mids[k].val = lna, val
         self._desc, self._desc_device = d, device
         return d
+
+    def _bf16_copy(self, t):
+        """The bfloat16 copy of an exact float table (made once)."""
+        key = id(t)
+        if key not in self._bf16:
+            self._bf16[key] = (t, t.to(torch.bfloat16).contiguous())
+        return self._bf16[key][1]
 
 
 def _state_type(T, kernel="K1") -> int:
@@ -536,7 +583,8 @@ def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall,
 
 
 def _group_calls(layout, group_tables, fuse_crossh):
-    return [_GroupCall(layout, plan, gt, fuse_crossh)
+    memo = {}
+    return [_GroupCall(layout, plan, gt, fuse_crossh, bf16_memo=memo)
             for plan, gt in zip(fused_group_plans(layout), group_tables)]
 
 

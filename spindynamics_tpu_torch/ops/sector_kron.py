@@ -38,6 +38,8 @@ __all__ = [
     "kron_apply_flops",
     "flat_to_blocks",
     "blocks_to_flat",
+    "kron_order_states",
+    "kron_rank",
 ]
 
 
@@ -158,6 +160,60 @@ def _group_list(L, nup, splits, pads=DEFAULT_PADS):
             out.append((k_h, k_m, k_l, math.comb(L3, k_h), cm, cl,
                         _pad_up(cm, pm), _pad_up(cl, pl)))
     return out
+
+
+def kron_order_states(L: int, nup: int, splits, pads=DEFAULT_PADS
+                      ) -> np.ndarray:
+    """uint32 states in ((k_h, k_m) group, rank_h, rank_m, rank_l) order,
+    PAD_SENTINEL in tile-padding slots: entry r is the basis state (bit i =
+    site i) whose amplitude a flat kron-order vector holds at r. Part ranks
+    follow kron_part_perms (mid and hi in rotated-bit internal order)."""
+    L1, L2, L3 = splits
+    perms = kron_part_perms(splits)
+    parts = []
+    for (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in _group_list(L, nup, splits,
+                                                             pads):
+        his = _perm_sector_states(L3, k_h, perms[2]).astype(np.uint64)
+        mids = _perm_sector_states(L2, k_m, perms[1]).astype(np.uint64)
+        los = _perm_sector_states(L1, k_l, perms[0]).astype(np.uint64)
+        blk = ((his[:, None, None] << np.uint64(L1 + L2))
+               | (mids[None, :, None] << np.uint64(L1))
+               | los[None, None, :]).astype(np.uint32)
+        if (cmp, clp) != (cm, cl):
+            blk = np.pad(blk, ((0, 0), (0, cmp - cm), (0, clp - cl)),
+                         constant_values=PAD_SENTINEL)
+        parts.append(blk.reshape(-1))
+    return np.concatenate(parts)
+
+
+def kron_rank(state: int, L: int, nup: int, splits, pads=DEFAULT_PADS
+              ) -> int:
+    """Host rank of a basis state in the kron order: the inverse of
+    kron_order_states at one state."""
+    L1, L2, L3 = splits
+    perms = kron_part_perms(splits)
+
+    def internal(sub, Lp, perm):
+        v = 0
+        for rel in range(Lp):
+            v |= ((sub >> rel) & 1) << perm[rel]
+        return v
+
+    lo = internal(state & ((1 << L1) - 1), L1, perms[0])
+    mid = internal((state >> L1) & ((1 << L2) - 1), L2, perms[1])
+    hi = internal(state >> (L1 + L2), L3, perms[2])
+    k_h = bin(hi).count("1")
+    k_m = bin(mid).count("1")
+    off = 0
+    for (gkh, gkm, gkl, ch, cm, cl, cmp, clp) in _group_list(L, nup, splits,
+                                                             pads):
+        if (gkh, gkm) == (k_h, k_m) and bin(lo).count("1") == gkl:
+            return (off
+                    + (basis_mod.rank_state(hi, L3, k_h) * cmp
+                       + basis_mod.rank_state(mid, L2, k_m)) * clp
+                    + basis_mod.rank_state(lo, L1, gkl))
+        off += ch * cmp * clp
+    raise ValueError(f"state {state:#x} not in sector nup={nup}")
 
 
 def _flip_matrix(Lp: int, k_src: int, p: int, v: int):

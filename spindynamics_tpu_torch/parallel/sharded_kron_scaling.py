@@ -508,7 +508,7 @@ class ShardedKronHamiltonian(nn.Module):
     def device(self):
         return self._anchor.device
 
-    def _shard_state(self, d, tree):
+    def _shard_state(self, d, tree, bf16_memo):
         """What shard d's code reads besides the state: its rows of the hi
         tables (views), the plain-apply tables with those rows in place of
         the hi vectors, and its K1 calls."""
@@ -542,7 +542,8 @@ class ShardedKronHamiltonian(nn.Module):
                         gt[name] = rows(gt[name], spec.b[gi])
                 calls[gi] = _GroupCall(lay, cfg.plans[gi], gt, True,
                                        rows=spec.b[gi],
-                                       windowed=cfg.windowed)
+                                       windowed=cfg.windowed,
+                                       bf16_memo=bf16_memo)
         return {"d": d, "tabs": tabs, "calls": calls,
                 "W_hi": {k: rows(W, b[k]) for k, W in hi["W"].items()},
                 "cross_hi": {k: rows(M, b_src[k])
@@ -551,8 +552,9 @@ class ShardedKronHamiltonian(nn.Module):
     def _state(self):
         if self._resolved is None:
             tree = _from_skeleton(self, self._skeleton)
+            memo = {}  # K1's bfloat16 tables, shared by the shards' calls
             self._resolved = (tree["tables"],
-                              [self._shard_state(d, tree)
+                              [self._shard_state(d, tree, memo)
                                for d in self.mesh.local_shards])
         return self._resolved
 

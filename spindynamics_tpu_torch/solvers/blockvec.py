@@ -13,8 +13,8 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["BlockVec", "bv_reduce", "bv_zeros_like", "bv_random", "bv_basis_state",
-           "bv_matvec_fn"]
+__all__ = ["BlockVec", "bv_reduce", "bv_zeros_like", "bv_where_mask",
+           "bv_random", "bv_basis_state", "bv_matvec_fn"]
 
 
 class BlockVec:
@@ -106,6 +106,14 @@ def bv_zeros_like(x):
     return torch.zeros_like(x)
 
 
+def bv_where_mask(mask, x):
+    """x where mask (leaf-wise) else 0: masking to a valid subspace."""
+    if isinstance(x, BlockVec):
+        return x.like([torch.where(m, l, torch.zeros_like(l))
+                       for m, l in zip(mask.leaves, x.leaves)])
+    return torch.where(mask, x, torch.zeros_like(x))
+
+
 def _shard_rows(x, gi, shard):
     """x's rows that `shard` = (spec, mesh) gives this process: the hi axis
     zero-padded to the padded length, cut to the mesh's rows."""
@@ -151,41 +159,28 @@ def bv_basis_state(layout, bitstring: int, dtype=torch.float32,
                    device=None, shard=None) -> BlockVec:
     """One-hot |bitstring> as a BlockVec on `device` (default: the card;
     pass device="cpu" for a CPU state). `shard=(spec, mesh)` makes the
-    sharded form on that mesh directly (this process's rows only)."""
-    from .. import basis as basis_mod
-    from ..ops.sector_kron import kron_part_perms
+    sharded form on that mesh directly (this process's rows only). A state
+    outside the layout's sector raises ValueError."""
+    from ..ops.sector_kron import kron_rank
 
-    L1, L2, L3 = layout.splits
-    perms = kron_part_perms(layout.splits)
-
-    def internal(sub, Lp, perm):
-        v = 0
-        for rel in range(Lp):
-            v |= ((sub >> rel) & 1) << perm[rel]
-        return v
-
-    lo = internal(bitstring & ((1 << L1) - 1), L1, perms[0])
-    mid = internal((bitstring >> L1) & ((1 << L2) - 1), L2, perms[1])
-    hi = internal(bitstring >> (L1 + L2), L3, perms[2])
-    k_h = bin(hi).count("1")
-    k_m = bin(mid).count("1")
-    k_l = bin(lo).count("1")
-    if k_h + k_m + k_l != layout.nup:
+    if bin(bitstring).count("1") != layout.nup or bitstring >> layout.L:
         raise ValueError(f"state {bitstring:#x} has wrong magnetization for "
                          f"nup={layout.nup}")
+    r = kron_rank(bitstring, layout.L, layout.nup, layout.splits,
+                  layout.pads)
     device = resolve_device(device)
     leaves = []
-    for gi, (gkh, gkm, gkl, ch, cm, cl, cmp, clp) in enumerate(
-            layout.groups):
+    for gi, (_, _, _, ch, cm, cl, cmp, clp) in enumerate(layout.groups):
         rows = range(ch)
         if shard is not None:
             spec, mesh = shard
             rows = range(spec.ch_pad[gi])[mesh.row_slice(spec.b[gi])]
         leaf = torch.zeros((len(rows), cmp, clp), dtype=dtype, device=device)
-        h = basis_mod.rank_state(hi, L3, k_h)  # the state's hi rank
-        if (gkh, gkm) == (k_h, k_m) and h in rows:
-            leaf[h - rows[0], basis_mod.rank_state(mid, L2, k_m),
-                 basis_mod.rank_state(lo, L1, k_l)] = 1
+        o = r - layout.offsets[gi]
+        if 0 <= o < ch * cmp * clp:
+            h, m, l = o // (cmp * clp), (o // clp) % cmp, o % clp
+            if h in rows:
+                leaf[h - rows[0], m, l] = 1
         leaves.append(leaf)
     return BlockVec(leaves, None if shard is None else shard[1])
 

@@ -4,7 +4,8 @@ spindynamics_tpu/solvers/lanczos.py).
 One recurrence core with options serves the extremal, ground-state,
 tridiagonal and spectral paths. A state is a BlockVec (the kron layout) or
 one flat tensor, real or complex (the full and embedded layouts); the
-stored basis and the reorthogonalization options exist for flat states.
+stored basis and the reorthogonalization options take both (a BlockVec
+basis is a list of stacked leaves).
 `lax.scan` becomes a Python loop; per-step scalars stay 0-d tensors on the
 state's device, so a step never waits for the device (the selective
 reorthogonalization decides on the host and does wait). The seeded (axpy)
@@ -47,7 +48,8 @@ class LanczosFactorization(NamedTuple):
     betas: torch.Tensor    # [m] (zeros past breakdown), on the CPU
     m_eff: int             # number of valid Lanczos vectors
     v0_norm: torch.Tensor  # norm of the starting vector
-    basis: torch.Tensor | None = None  # [m, N] Krylov basis (flat states)
+    # [m, N] Krylov basis, or a BlockVec of stacked [m, ...] leaves
+    basis: torch.Tensor | BlockVec | None = None
 
 
 def _inner_c(x, y, compensated: bool):
@@ -92,9 +94,27 @@ def _default_compensated(dtype) -> bool:
 
 
 def _project_out(V, w, j: int):
-    """w minus its components along the stored V[0..j] (two products)."""
+    """w minus its components along the stored V[0..j] (two products). A
+    BlockVec basis is a list of stacked leaves [m, ...]: the coefficients
+    sum over the leaves (and over the mesh of a sharded state)."""
+    if isinstance(w, BlockVec):
+        coeffs = bv_reduce(sum(
+            torch.tensordot(Vl[: j + 1].conj(), wl, dims=wl.ndim)
+            for Vl, wl in zip(V, w.leaves)), w)
+        return w.like([wl - torch.tensordot(coeffs.to(wl.dtype), Vl[: j + 1],
+                                            dims=1)
+                       for wl, Vl in zip(w.leaves, V)])
     Vj = V[: j + 1]
     return w - Vj.T @ (Vj.conj() @ w)
+
+
+def _store(V, j: int, v):
+    """V[j] = v, for a flat basis [m, N] or a list of stacked leaves."""
+    if isinstance(v, BlockVec):
+        for Vl, l in zip(V, v.leaves):
+            Vl[j] = l
+    else:
+        V[j] = v
 
 
 def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
@@ -106,8 +126,8 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
     reorth: False | True/"full" (against the whole stored basis, every
     step) | "selective" (Simon's omega recurrence tracks the worst-case
     orthogonality estimate on the host; a full sweep runs only when it
-    passes sqrt(eps)). reorth and store_basis keep an [m, N] basis and take
-    flat states.
+    passes sqrt(eps)). reorth and store_basis keep an [m, N] basis, or for
+    BlockVec states one stacked [m, ...] tensor per leaf.
 
     With `matvec.supports_axpy` (and no stored basis) the recurrence's
     -beta_{j-1} v_{j-1} is folded into the apply's kernel seed, and alpha =
@@ -123,16 +143,14 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
     selective = reorth == "selective"
     full_reorth = bool(reorth) and not selective
     use_buffer = bool(reorth) or store_basis
-    if use_buffer and isinstance(v1, BlockVec):
-        raise NotImplementedError(
-            "a stored basis / reorthogonalization on BlockVec states is not "
-            "ported yet (ROADMAP Queue 1, item 10)")
     axpy_ok = getattr(matvec, "supports_axpy", False) and not use_buffer
 
     V = None
     if use_buffer:
-        V = torch.zeros((m, v1.shape[0]), dtype=dtype, device=dev)
-        V[0] = v1
+        V = ([torch.zeros((m,) + l.shape, dtype=l.dtype, device=l.device)
+              for l in v1.leaves] if isinstance(v1, BlockVec)
+             else torch.zeros((m, v1.shape[0]), dtype=dtype, device=dev))
+        _store(V, 0, v1)
     if selective:
         # host copies of the recurrence's scalars, in the state's precision
         npdt = np.float32 if rdtype == torch.float32 else np.float64
@@ -199,10 +217,12 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
         betas.append(beta_out)
         actives.append(active)
         if use_buffer and j + 1 < m:
-            V[j + 1] = v_next
+            _store(V, j + 1, v_next)
         v_prev, v_curr = v_curr, v_next
         beta_prev, active, last_alpha = beta_out, ok, alpha_out
         del w
+    if store_basis and isinstance(v1, BlockVec):
+        V = v1.like(V)  # stacked [m, ...] leaves
     return (torch.stack(alphas), torch.stack(betas), torch.stack(actives),
             V if store_basis else None)
 
@@ -342,10 +362,12 @@ def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
                         compensated: bool | None = None, v0=None,
                         device=None):
     """Ground-state energy and vector with a stored basis and
-    reorthogonalization (ref src/Lanczos.jl:78-165), on flat states.
-    Returns (E0, psi, info with residual). reorth: "full" | "selective" |
-    False. Memory is O(lanc_m N): use the restarted or two-pass solvers
-    when the basis does not fit."""
+    reorthogonalization (ref src/Lanczos.jl:78-165), on flat states or, from
+    a BlockVec `v0`, on the kron layout (the basis then stored as stacked
+    per-group leaves, the projections as per-leaf tensordots). Returns (E0,
+    psi, info with residual). reorth: "full" | "selective" | False. Memory
+    is O(lanc_m N): use the restarted or two-pass solvers when the basis
+    does not fit."""
     v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
     if reorth is True:
         reorth = "full"
@@ -358,8 +380,11 @@ def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
     y = np.zeros(lanc_m)
     y[:k] = evecs[:, idx]
     V = fac.basis
-    psi = torch.as_tensor(y, dtype=real_dtype(V.dtype),
-                          device=V.device).to(V.dtype) @ V
+    yt = torch.as_tensor(y, dtype=real_dtype(V.dtype), device=V.device)
+    if isinstance(V, BlockVec):
+        psi = V.map(lambda l: torch.tensordot(yt.to(l.dtype), l, dims=1))
+    else:
+        psi = yt.to(V.dtype) @ V
     nrm = _norm_c(psi, False)
     psi = psi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
     residual = float(_norm_c(matvec(psi) - psi * E0, False))

@@ -68,7 +68,8 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
                      target_residual: float | None = 1e-3,
                      generator: torch.Generator | None = None,
                      fused: bool = True, dtype: torch.dtype | None = None,
-                     device=None, v0: BlockVec | None = None, mesh=None):
+                     device=None, v0: BlockVec | None = None, mesh=None,
+                     reorth=None):
     """Ground state of a sector_kron model in BlockVec form.
 
     The apply is K1 (`fused`, float32) or the plain blocks apply. K1 takes
@@ -87,6 +88,13 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
     the bucketed Ritz finalize asks the sharded apply for a few groups at a
     time. `device` then defaults to the mesh's.
 
+    `reorth` = "selective" | "full" runs ONE stored-basis Lanczos cycle
+    with omega-triggered or every-step reorthogonalization
+    (lanczos_groundstate on BlockVec states) instead of the restarted
+    two-pass; `cycles` and `target_residual` are then ignored, and the
+    apply folds no axpy into K1's seed. Memory is O(lanc_m N): use it where
+    the basis fits.
+
     Returns (E0, psi, info, layout)."""
     if dtype is None:
         dtype = model.dtype
@@ -101,8 +109,13 @@ def groundstate_kron(model, lanc_m: int = 40, cycles: int = 6,
         # the solver normalizes its start in place
         v0 = mv.to_mesh(v0).map(
             lambda l: l.to(device=device, dtype=dtype, copy=True))
+    from .lanczos import lanczos_groundstate, lanczos_groundstate_restarted
+
+    if reorth:
+        E0, psi, info = lanczos_groundstate(mv, None, lanc_m=lanc_m,
+                                            dtype=dtype, reorth=reorth, v0=v0)
+        return E0, psi, info, lay
     finalize = _make_bucketed_finalize(lay, mesh)
-    from .lanczos import lanczos_groundstate_restarted
 
     E0, psi, info = lanczos_groundstate_restarted(
         mv, v0, lanc_m=lanc_m, cycles=cycles,

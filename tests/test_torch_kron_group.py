@@ -196,7 +196,17 @@ def test_kron_hamiltonian_module():
 
 # ---- the CUDA kernel's index arithmetic, emulated on the host -------------
 
-_BM, _BL = 32, 128  # csrc/kron_group.cu tile
+_BL = 128  # csrc/kron_tile.cuh tile width
+
+
+def _tile_rows(d):
+    """kron_tile.cuh tile_rows: the descriptor's, else 64-row tiles where
+    the group is taller than 32 rows and the grid fills two blocks on each
+    of 132 SMs, else 32."""
+    if d.tile_rows:
+        return d.tile_rows
+    blocks64 = (d.clp // _BL) * (-(-d.cmp // 64)) * d.ch
+    return 64 if d.cmp > 32 and blocks64 >= 2 * 132 else 32
 
 
 def _round_bf16(x):
@@ -206,57 +216,121 @@ def _round_bf16(x):
         torch.bfloat16).double().numpy()
 
 
-def _emulate_k1(d, store=True):
-    """Run kron_group.cu's grid, tiles and epilogue in numpy, reading every
-    operand through the pointers and integers of the ctypes descriptor.
-    States are read in the descriptor's state type (bfloat16: 2-byte
-    elements, each the high half of a float32) and tables as float32; the
-    sum is kept unrounded, and with `store` a bfloat16 launch rounds it
-    once, as the kernel's single store does (K2 takes it unrounded)."""
+def _bf16_halves(v32, two):
+    """kron_tile.cuh split4: the float32 values' bf16 hi halves and, when
+    `two`, their bf16 lo halves bf16(v - hi) (else 0), as float64."""
+    v = torch.from_numpy(np.ascontiguousarray(v32, np.float32))
+    hi = v.to(torch.bfloat16).float()
+    lo = (v - hi).to(torch.bfloat16).float() if two else torch.zeros_like(v)
+    return hi.double().numpy(), lo.double().numpy()
+
+
+def _emulate_k1(d, store=True, with_mag=False):
+    """Run kron_group.cu's grid, tiles, segment routes and epilogue in
+    numpy, reading every operand through the pointers, integers and flags
+    of the ctypes descriptor. States are read in the descriptor's state type
+    (bfloat16: 2-byte elements, each the high half of a float32); a
+    segment whose flag says its table is exactly bf16 reads the bf16 copy
+    and takes the tensor-core route: the state, times the segment's scale in
+    float32, is split into bf16 hi and lo halves (a bfloat16 state is its
+    own hi) and both halves multiply the table; every other segment, and a
+    bfloat16 state's segment under a scale that is not a power of two,
+    multiplies the table by the scaled state in float32 (the FMA route). Products
+    of bf16 halves and bf16 tables are exact in float64, so the emulation
+    differs from the kernel only by the order of the float32 sums. The sum
+    is kept unrounded, and with `store` a bfloat16 launch rounds it once, as
+    the kernel's single store does (K2 takes it unrounded). `with_mag` also
+    returns sum |a||b| over each element's matrix products, the scale of
+    the split's error (each product within 2^-16 of exact)."""
     ch, cmp, clp = d.ch, d.cmp, d.clp
     assert d.state_type in (0, 1)
+    BM = _tile_rows(d)
+
+    def raw(ptr, n, ctype):
+        return np.ctypeslib.as_array((ctype * n).from_address(ptr))
+
+    seen = {}  # each operand is read (and widened) once
 
     def arr(ptr, n):
-        return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)
-                                     ).astype(np.float64)
+        if (ptr, n, 4) not in seen:
+            seen[ptr, n, 4] = raw(ptr, n, ctypes.c_float).astype(np.float64)
+        return seen[ptr, n, 4]
+
+    def bfarr(ptr, n):
+        if (ptr, n, 2) not in seen:
+            u = raw(ptr, n, ctypes.c_uint16)
+            seen[ptr, n, 2] = (u.astype(np.uint32) << 16).view(
+                np.float32).astype(np.float64)
+        return seen[ptr, n, 2]
 
     def sarr(ptr, n):
-        if d.state_type == 0:
-            return arr(ptr, n)
-        u = np.ctypeslib.as_array((ctypes.c_uint16 * n).from_address(ptr))
-        return (u.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+        return arr(ptr, n) if d.state_type == 0 else bfarr(ptr, n)
+
+    def tab(ptr, n, exact):
+        return bfarr(ptr, n) if exact else arr(ptr, n)
 
     T = sarr(d.T, ch * cmp * clp)
     seed = sarr(d.seed, ch * cmp * clp) if d.seed else None
     out = np.full(ch * cmp * clp, np.nan)
+    mag = np.zeros(ch * cmp * clp)
     for h in range(ch):
-        for m0 in range(0, cmp, _BM):
+        for m0 in range(0, cmp, BM):
             for l0 in range(0, clp, _BL):
-                acc = np.zeros((_BM, _BL))
+                acc = np.zeros((BM, _BL))
+                amag = np.zeros((BM, _BL))
 
-                def seg(A, lda, shift, mlo, mhi, scale, B, ldb, K):
-                    Bt = B.reshape(K, ldb)[:, l0:l0 + _BL]
-                    for r in range(_BM):
-                        m = m0 + r
-                        if mlo <= m < mhi:
-                            a = A[(m + shift) * lda:(m + shift) * lda + K]
-                            acc[r] += (a * scale) @ Bt
+                def seg(S, lds, shift, mlo, mhi, scale, B, K, exact, sa):
+                    """acc += the segment for tile rows m0..m0+BM: sa, the
+                    state is A (rows m + shift, valid in [mlo, mhi)) and B
+                    the table [K, clp]; else A is the table [cmp, K] and
+                    the state B [K, clp]."""
+                    rows = np.arange(m0, m0 + BM)
+                    ok = (rows >= mlo) & (rows < mhi)
+                    if sa:
+                        st = np.zeros((BM, K))
+                        idx = (rows[ok] + shift)[:, None] * lds + np.arange(K)
+                        st[ok] = S[idx]
+                        other = B.reshape(K, clp)[:, l0:l0 + _BL]
+                    else:
+                        st = S.reshape(K, lds)[:, l0:l0 + _BL]
+                        other = np.zeros((BM, K))
+                        other[ok] = B.reshape(cmp, K)[rows[ok]]
+                    v32 = st.astype(np.float32) * np.float32(scale)
+                    pow2 = np.frexp(np.float32(scale))[0] in (0.5, -0.5, 0.0)
+                    if exact and (d.state_type == 0 or pow2):
+                        halves = _bf16_halves(v32, d.state_type == 0)
+                    else:  # the FMA route (float or bf16 table)
+                        halves = (v32.astype(np.float64),)
+                    def mm(x, y):  # float64, on torch's one thread
+                        return (torch.from_numpy(np.ascontiguousarray(x))
+                                @ torch.from_numpy(np.ascontiguousarray(y))
+                                ).numpy()
+
+                    for half in halves:
+                        acc[:] += (mm(half, other) if sa
+                                   else mm(other, half))
+                    a = np.abs(v32.astype(np.float64))
+                    amag[:] += (mm(a, np.abs(other)) if sa
+                                else mm(np.abs(other), a))
 
                 Th = T[h * cmp * clp:(h + 1) * cmp * clp]
                 if d.W_lo:
-                    seg(Th, clp, 0, 0, cmp, 1.0, arr(d.W_lo, clp * clp),
-                        clp, clp)
+                    seg(Th, clp, 0, 0, cmp, 1.0,
+                        tab(d.W_lo, clp * clp, d.wlo_exact), clp,
+                        d.wlo_exact, True)
                 if d.W_mid_T:
-                    seg(arr(d.W_mid_T, cmp * cmp), cmp, 0, 0, cmp, 1.0, Th,
-                        clp, cmp)
+                    seg(Th, clp, 0, 0, cmp, 1.0,
+                        tab(d.W_mid_T, cmp * cmp, d.wmid_exact), cmp,
+                        d.wmid_exact, False)
                 for x in d.cross[:d.n_cross]:
-                    if m0 + _BM <= x.c0 or m0 >= x.c0 + x.ln:
+                    if m0 + BM <= x.c0 or m0 >= x.c0 + x.ln:
                         continue
                     n = x.cmp_s * x.clp_s
                     src = sarr(x.src, ch * n)[h * n:(h + 1) * n]
                     seg(src, x.clp_s, x.r0 - x.c0, x.c0, x.c0 + x.ln, x.val,
-                        arr(x.A, x.clp_s * clp), clp, x.clp_s)
-                for r in range(_BM):
+                        tab(x.A, x.clp_s * clp, x.exact), x.clp_s, x.exact,
+                        True)
+                for r in range(BM):
                     m = m0 + r
                     if m >= cmp:
                         break
@@ -287,9 +361,11 @@ def _emulate_k1(d, store=True):
                                 row = h * x.cmp_s + mr.ra0 + m - mr.ca0
                                 v = v + mr.val * W[row * clp:][ls]
                     out[idx + l0:idx + l0 + _BL] = v
+                    mag[idx + l0:idx + l0 + _BL] = amag[r]
     if store and d.state_type == 1:
         out = _round_bf16(out)
-    return out.reshape(ch, cmp, clp)
+    out = out.reshape(ch, cmp, clp)
+    return (out, mag.reshape(ch, cmp, clp)) if with_mag else out
 
 
 def _k1_descriptor(call, T, seed, srcs, srcsh, wins=()):
@@ -312,7 +388,10 @@ def _k1_descriptor(call, T, seed, srcs, srcsh, wins=()):
                                       (14, (6, 4, 4))])
 def test_k1_tile_emulation_matches_reference(L, splits):
     """Every fused group of the layout, with and without a seed: the
-    descriptor-driven tile emulation equals K1's plain version."""
+    descriptor-driven tile emulation equals K1's plain version, to its
+    float32 summation order (2e-6 of the scale) and, per element, the hi/lo
+    split's 2^-16 sum |a||b| (each state value is carried to 16 significand
+    bits; the products themselves are exact)."""
     mj, lj, mt, lt = _models(L, splits=splits)
     x = _state(mj, lj, 8)
     bt = tsk.flat_to_blocks(torch.as_tensor(x, dtype=torch.float32), lt)
@@ -326,22 +405,37 @@ def test_k1_tile_emulation_matches_reference(L, splits):
         for seed in (None, bt[gi] * 0.5 + 1.0):
             ref = kg.kron_group_apply_reference(bt[gi], seed, srcs, srcsh,
                                                 call)
-            emu = _emulate_k1(_k1_descriptor(call, bt[gi], seed, srcs, srcsh))
+            emu, mag = _emulate_k1(_k1_descriptor(call, bt[gi], seed, srcs,
+                                                  srcsh), with_mag=True)
             scale = float(ref.abs().max()) + 1.0
-            assert np.abs(emu - ref.double().numpy()).max() < 2e-6 * scale
+            assert np.all(np.abs(emu - ref.double().numpy())
+                          <= 2.0 ** -16 * mag + 2e-6 * scale)
+            # dyadic couplings: every table takes the tensor-core route
+            assert call.exact == (call.W_lo is not None,
+                                  call.W_mid_T is not None,
+                                  (True,) * len(call.cross))
     assert n_crossh > 0  # the mid|hi slice adds were exercised
 
 
 def test_k1_descriptor_layout_and_refusals():
-    # 8 pointers, 7 ints (+4 bytes of padding), then the three term arrays
+    # 8 pointers, 10 ints, then the three term arrays;
+    # a lo|mid term is 2 pointers, 7 ints and its exactness flag (+4)
     assert ctypes.sizeof(kg._KgCrossW) == 8 + 2 * 4 + 16 * 4
-    assert ctypes.sizeof(kg._KgDesc) == 96 + 40 * 16 + 96 * 8 + 80 * 8
-    # the state type sits after the five ints, the window count after it
+    assert ctypes.sizeof(kg._KgCross) == 16 + 8 * 4
+    assert kg._KgCross.exact.offset == 40
+    assert ctypes.sizeof(kg._KgDesc) == 104 + 48 * 16 + 96 * 8 + 80 * 8
+    # the state type sits after the five ints, the window count after it,
+    # then the per-segment flags of W_lo and W_mid and the tile height
     assert kg._KgDesc.state_type.offset == 84
     assert kg._KgDesc.n_crossw.offset == 88
-    assert kg._KgDesc.cross.offset == 96
-    assert kg._KgDesc.crossh.offset == 96 + 40 * 16
-    assert kg._KgDesc.crossw.offset == 96 + 40 * 16 + 96 * 8
+    assert kg._KgDesc.wlo_exact.offset == 92
+    assert kg._KgDesc.wmid_exact.offset == 96
+    assert kg._KgDesc.tile_rows.offset == 100
+    assert kg._KgDesc.cross.offset == 104
+    assert kg._KgDesc.crossh.offset == 104 + 48 * 16
+    assert kg._KgDesc.crossw.offset == 104 + 48 * 16 + 96 * 8
+    # passed by value as a __grid_constant__: under the 4 KB limit
+    assert ctypes.sizeof(kg._KgDesc) <= 4096
     mj, lj, mt, lt = _models(12, splits=(5, 4, 3))
     calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
     with pytest.raises(ValueError, match="tables on"):
@@ -395,23 +489,25 @@ def test_crossw_tile_emulation_matches_reference(L, splits, D, sdt):
     """Every windowed launch of a sharded apply: the descriptor-driven tile
     emulation (windows read through KgCrossW) equals K1's plain version;
     tile pads and the hi padding rows of the last shards are exactly 0.
-    float32: 2e-6 of the scale (summation order). bfloat16: the emulation
-    rounds its float64 sum once, the plain version its float32 sum, so the
-    two agree to one bfloat16 unit (2^-7 |y|)."""
+    float32: 2e-6 of the scale (summation order) and, per element, the
+    hi/lo split's 2^-16 sum |a||b|. bfloat16: the emulation rounds its
+    float64 sum once, the plain version its float32 sum, so the two agree
+    to one bfloat16 unit (2^-7 |y|)."""
     launches, lt, spec = _shard_launches(L, splits, D, sdt, 11)
     assert launches
     for (T, seed, srcs, w, call, gi, i) in launches:
         assert call.crossh == [] and len(call.crossw) == len(w) > 0
         ref = kg.kron_group_apply_reference(T, seed, srcs, [], call, w)
         assert ref.dtype == sdt
-        emu = _emulate_k1(_k1_descriptor(call, T, seed, srcs, [], w))
+        emu, mag = _emulate_k1(_k1_descriptor(call, T, seed, srcs, [], w),
+                               with_mag=True)
         r = ref.double().numpy()
         scale = float(np.abs(r).max()) + 1.0
         if sdt == torch.float32:
-            assert np.abs(emu - r).max() < 2e-6 * scale
+            assert np.all(np.abs(emu - r) <= 2.0 ** -16 * mag + 2e-6 * scale)
         else:
             assert np.all(np.abs(emu - r) <= 2.0 ** -7 * np.abs(r)
-                          + 1e-5 * scale)
+                          + 2.0 ** -16 * mag + 1e-5 * scale)
         # the wrapper on a CPU tensor is the plain version, and writes `out`
         out = torch.full_like(T, 7.0)
         got = kg.kron_group_apply(T, seed, srcs, [], call, w, out=out)
@@ -441,3 +537,50 @@ def test_crossw_refusals_and_counts():
     meta = [t.to("meta") for t in [T] + list(w)]
     with pytest.raises(ValueError, match="CUDA"):
         kg.kron_group_apply(meta[0], None, [], [], call, meta[1:])
+
+
+@pytest.mark.parametrize("kind", ["xxz", "long_range_xy", "xxz_jxy03"])
+def test_exactness_flags_match_jax(kind):
+    """Each fused group's per-segment flags (the table is exactly bf16: the
+    tensor-core route) equal the JAX kernel's `_bf16_exact` on the same
+    tables (pallas_kron.py:530-532): every table of a dyadic XXZ chain is
+    exact, no W table of the long-range chain or of Jxy = 0.3 is; the
+    descriptor carries the flags and, for an exact table, its bf16 copy."""
+    from spindynamics_tpu.ops.pallas_kron import (_bf16_exact,
+                                                  fused_group_plans as jplans)
+
+    L, kw = 12, dict(nup=6, kron_splits=(5, 4, 3))
+    if kind == "long_range_xy":
+        def J(i, j):
+            return 1.0 / (j - i) ** 2
+        mj = sd.long_range_xy_chain(L, J, layout="sector_kron", **kw)
+        mt = pt.long_range_xy_chain(L, J, **kw)
+    else:
+        Jxy = 1.0 if kind == "xxz" else 0.3
+        mj = sd.xxz_chain(L, Jxy=Jxy, Jz=0.5, layout="sector_kron", **kw)
+        mt = pt.xxz_chain(L, Jxy=Jxy, Jz=0.5, **kw)
+    lj = jsk.make_sector_kron_layout(mj, mj.kron_splits, mj.kron_pads)
+    lt = tsk.make_sector_kron_layout(mt, mt.kron_splits)
+    flags = []
+    for pj, pt_ in zip(jplans(lj), kg.fused_group_plans(lt)):
+        want = (pj.W_lo is not None and _bf16_exact(pj.W_lo),
+                pj.W_mid_T is not None and _bf16_exact(pj.W_mid_T),
+                tuple(_bf16_exact(c[5]) for c in pj.cross))
+        assert pt_.exact == want
+        flags += [want[0], want[1], *want[2]]
+    w_flags = [f for p in kg.fused_group_plans(lt)
+               for f, t in zip(p.exact[:2], (p.W_lo, p.W_mid_T))
+               if t is not None]
+    assert w_flags and all(w_flags) == (kind == "xxz")
+    assert any(w_flags) == (kind == "xxz")
+    calls = pt.KronHamiltonian(lt, device="cpu", dtype=torch.float32).calls
+    c = next(c for c in calls if c.W_lo is not None)
+    d = c.descriptor(torch.device("cpu"))
+    assert d.wlo_exact == int(c.exact[0])
+    if c.exact[0]:  # the kernel reads the bf16 copy, equal to the table
+        u = np.ctypeslib.as_array((ctypes.c_uint16 * c.W_lo.numel())
+                                  .from_address(d.W_lo))
+        back = (u.astype(np.uint32) << 16).view(np.float32)
+        np.testing.assert_array_equal(back, c.W_lo.numpy().reshape(-1))
+    else:
+        assert d.W_lo == c.W_lo.data_ptr()
