@@ -64,9 +64,10 @@ with no result line):
   k3       K3 against its plain torch version on the card, real and complex,
            at L=16 (the XXZ chain and an all-pairs model) and at --L-flat:
            exact zeros outside the sector, bit-identical repeats, event
-           times of K3, the plain version and an N-sized copy; and the time
-           of one torch sparse CSR product H @ psi for the same model (at
-           L=22, and at --L-flat where the matrix fits)
+           times of K3, the plain version and an N-sized copy, K3 / copy,
+           the designed passes of each type's tile and the rate achieved
+           over them; and the time of one torch sparse CSR product H @ psi
+           for the same model (at L=22, and at --L-flat where it fits)
   flat-oracle  L=12 ground state and 10-step domain-wall trajectory through
            K3 against the float64 dense oracle on the host
   flat-main  --L-flat embedded XXZ chain, Sz=0: ground state, lanczos_sqw
@@ -104,7 +105,8 @@ with no result line):
            so, where torch.distributed has no NCCL)
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
-  k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^13
+  k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^15
+           (2^14 complex64), each held to the default tile's result
   kron-tiles (--kron-tiles) K1's and K2's time at --L with 32- and 64-row
            output tiles beside the kernel's rule; results identical
 Then one JSON line with the kernel records, and last the device line.
@@ -123,6 +125,9 @@ on an H100 (its limit is 20).
 
 Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--shards 4] [--profile]
                              [--k3-tiles] [--kron-tiles]
+       python3 chip_smoke.py --k3-against DIR [--L-flat 26]
+(--k3-against runs only the k3 phase, of the checkout at DIR and of this
+one in turns, and prints no result line.)
 """
 
 from __future__ import annotations
@@ -132,6 +137,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1184,12 +1190,14 @@ def csr_hamiltonian(model, dev):
                                    check_invariants=False)
 
 
-def _k3_call(m, dev, tile_bits=None):
-    """K3's plan for `m` with its tables on `dev`, held for many applies
-    (the wrapper alone builds both anew for every apply)."""
+def _k3_call(m, dev, tile_bits=None, cplx=False):
+    """K3's plan for `m` and a float32 (complex64) state with its tables on
+    `dev`, held for many applies (the wrapper alone builds both anew for
+    every apply)."""
     from spindynamics_tpu_torch.ops import fused_matvec as fm
 
-    return fm.FusedCall(fm.make_fused_plan(m, tile_bits), device=dev)
+    return fm.FusedCall(fm.make_fused_plan(m, tile_bits, is_complex=cplx),
+                        device=dev)
 
 
 def _time_csr(L, dev):
@@ -1221,7 +1229,7 @@ def _k3_check(m, dev, cplx, seed, what):
     from spindynamics_tpu_torch.ops import fused_matvec as fm
 
     x = _flat_state(m, dev, cplx, seed)
-    call = _k3_call(m, dev)
+    call = _k3_call(m, dev, cplx=cplx)
     got = fm.fused_matvec_apply(x, m, call)
     torch.cuda.synchronize()
     want = fm.fused_matvec_apply_reference(x, m)
@@ -1256,11 +1264,12 @@ def phase_k3(L, dev):
               f"real {errs[0]:.3e} complex {errs[1]:.3e} (<= 1e-6), exact 0 "
               f"outside the sector, repeats bit-identical")
     m = _flat_model(L, "chain-field")
-    call = _k3_call(m, dev)
-    plan = call.plan
     N = m.n_states
-    out = {"passes": fm.fused_pass_count(plan)}
+    out = {}
     for cplx in (False, True):
+        call = _k3_call(m, dev, cplx=cplx)
+        plan = call.plan
+        passes = fm.fused_pass_count(plan)
         d, rel, x = _k3_check(m, dev, cplx, L, f"L={L}")
         # the plain version is timed with its N-sized diagonal held, as a
         # blocked FlatHamiltonian holds it
@@ -1273,22 +1282,27 @@ def phase_k3(L, dev):
         y = torch.empty_like(x)
         c_ms = _event_ms(lambda: y.copy_(x), reps=10)
         comps = 2 if cplx else 1
+        state_bytes = N * 4 * comps
         # every bond is active on half of the states: 2 flops per component
-        bound = _bound(2 * N * 4 * comps,
-                       2 * comps * N * (1 + m.n_bonds / 2))
-        copy_bw = 2 * N * 4 * comps / (c_ms * 1e-3)
+        bound = _bound(2 * state_bytes, 2 * comps * N * (1 + m.n_bonds / 2))
+        copy_bw = 2 * state_bytes / (c_ms * 1e-3)
+        ms = min(k_ms, k_ms2)
         tag = "complex" if cplx else "real"
-        out[tag] = dict(abs_err=d, rel_err=rel, ms=min(k_ms, k_ms2),
-                        plain_ms=p_ms, copy_ms=c_ms, bound=bound)
-        print(f"k3 L={L} {tag}: tile 2^{plan.tile_bits}, bonds "
-              f"local/straddle/tile {plan.n_local}/{plan.n_strad}/"
-              f"{plan.n_tile}, {out['passes']:.1f} designed passes | "
-              f"max|d|/max|y| {rel:.3e} (<= 1e-6), max|d| {d:.3e}, exact 0 "
-              f"outside the sector, repeats bit-identical | median of 10, "
-              f"K3/plain/K3: K3 {k_ms:.3f} ms, plain {p_ms:.3f} ms, K3 "
-              f"{k_ms2:.3f} ms | N-sized copy {c_ms:.3f} ms "
-              f"({copy_bw / 1e12:.2f} TB/s) | bound {bound[0]:.3f} ms by "
-              f"{bound[1]} (data sheet), {2 * N * 4 * comps / copy_bw * 1e3:.3f}"
+        out[tag] = dict(abs_err=d, rel_err=rel, ms=ms, plain_ms=p_ms,
+                        copy_ms=c_ms, bound=bound, passes=passes,
+                        tile_bits=plan.tile_bits)
+        print(f"k3 L={L} {tag}: tile 2^{plan.tile_bits} (chunks "
+              f"2^{plan.chunk_bits}), bonds local/straddle/tile "
+              f"{plan.n_local}/{plan.n_strad}/{plan.n_tile}, {passes:.1f} "
+              f"designed passes | max|d|/max|y| {rel:.3e} (<= 1e-6), max|d| "
+              f"{d:.3e}, exact 0 outside the sector, repeats bit-identical | "
+              f"median of 10, K3/plain/K3: K3 {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, K3 {k_ms2:.3f} ms | N-sized copy {c_ms:.3f} "
+              f"ms ({copy_bw / 1e12:.2f} TB/s) | K3 / copy {ms / c_ms:.2f} | "
+              f"achieved {2 * state_bytes / ms * 1e-9:.2f} TB/s over the "
+              f"bound's two passes, {passes * state_bytes / ms * 1e-9:.2f} "
+              f"TB/s over the designed passes | bound {bound[0]:.3f} ms by "
+              f"{bound[1]} (data sheet), {2 * state_bytes / copy_bw * 1e3:.3f}"
               f" ms at the copy's rate")
         del x, y
     torch.cuda.empty_cache()
@@ -1310,20 +1324,22 @@ def phase_k3(L, dev):
 
 
 def phase_k3_tiles(L, dev):
-    """(--k3-tiles) K3's time at L for every tile size 2^8..2^13, real and
-    complex, each checked against the default tile's result."""
+    """(--k3-tiles) K3's time at L for every tile size 2^8..2^15 float32
+    and 2^8..2^14 complex64 (128 KB), each checked against the default
+    tile's result."""
     from spindynamics_tpu_torch.ops import fused_matvec as fm
 
     m = _flat_model(L, "chain-field")
     for cplx in (False, True):
         x = _flat_state(m, dev, cplx, seed=L)
         want = fm.fused_matvec_apply(x, m)
+        scale = float(want.abs().max())
         rows = []
-        for k in range(8, 14):
-            call = _k3_call(m, dev, k)
+        for k in range(8, fm.tile_bits_range(cplx)[1] + 1):
+            call = _k3_call(m, dev, k, cplx)
             plan = call.plan
             got = fm.fused_matvec_apply(x, m, call)
-            rel = float((got - want).abs().max()) / float(want.abs().max())
+            rel = float((got - want).abs().max()) / scale
             if not rel <= 1e-6:
                 raise RuntimeError(f"tile 2^{k}: off the default tile's "
                                    f"result by {rel:.3e}")
@@ -1332,6 +1348,22 @@ def phase_k3_tiles(L, dev):
                         f"({fm.fused_pass_count(plan):.1f} passes)")
         print(f"k3-tiles L={L} {'complex' if cplx else 'real'}: "
               + " | ".join(rows))
+
+
+def k3_turns(root, L):
+    """(--k3-against ROOT) The k3 phase at L of the checkout at ROOT and
+    of this one, in turns (ROOT, this, this, ROOT), each in a process of
+    its own that imports that checkout's chip_smoke and package: two
+    versions of K3 compared on one card in one call."""
+    here = str(Path(__file__).resolve().parent)
+    there = str(Path(root).resolve())
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; cs.phase_device(); cs.phase_build(); "
+            "cs.phase_k3(int(sys.argv[2]), torch.device('cuda'))")
+    for r in (there, here, here, there):
+        print(f"k3-turns: {r}", flush=True)
+        subprocess.run([sys.executable, "-c", code, r, str(L)], cwd=r,
+                       check=True)
 
 
 def phase_profile_flat(L, dev):
@@ -2107,6 +2139,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
     ap.add_argument("--kron-tiles", action="store_true", dest="kron_tiles")
+    ap.add_argument("--k3-against", default=None, dest="k3_against",
+                    metavar="DIR")
     args = ap.parse_args(argv)
     if args.L % 2 or not 16 <= args.L <= 32:
         raise SystemExit("--L must be even, 16..32")
@@ -2116,6 +2150,9 @@ def main(argv=None):
         raise SystemExit("--shards must be at least 2 (one shard runs no "
                          "crossw instance)")
 
+    if args.k3_against:
+        k3_turns(args.k3_against, args.L_flat)
+        return 0  # a comparison, not the smoke: no result line
     phase_device()
     dev = torch.device("cuda")
     from spindynamics_tpu_torch import BlockVec  # (the import pins TF32 off)
@@ -2249,6 +2286,10 @@ def main(argv=None):
         "complex_plain_ms": k3["complex"]["plain_ms"],
         "complex_bound_ms": k3["complex"]["bound"][0],
         "complex_copy_ms": k3["complex"]["copy_ms"],
+        "tile_bits": k3["real"]["tile_bits"],
+        "complex_tile_bits": k3["complex"]["tile_bits"],
+        "designed_passes": k3["real"]["passes"],
+        "complex_designed_passes": k3["complex"]["passes"],
     }, {
         "name": "K1 crossw variant (sharded local block, windows)",
         "route": "cuda",

@@ -49,6 +49,8 @@ __all__ = [
 ]
 
 _BACKENDS = ("dense", "blocked", "fused")
+# FlatHamiltonian's buffer prefixes of K3's tables: float32, complex64 plan
+_K3_PREFIX = {False: "k3_", True: "k3c_"}
 
 
 def build_dense_H(model: SpinModel) -> np.ndarray:
@@ -128,8 +130,11 @@ class FlatHamiltonian(nn.Module):
     the dense matrix are registered buffers, so `.to(device)` moves them;
     the last two are stored in `dtype` (default the model's), and a blocked
     module applied to a state of another precision rebuilds its diagonal
-    in that one. A 'fused' module takes float32 and complex64 CUDA states;
-    on a CPU state it runs K3's plain version, as the wrapper does."""
+    in that one. A 'fused' module takes float32 and complex64 CUDA states,
+    with one K3 plan per element type (the default tile is 32 KB: 2^13
+    float32, 2^12 complex64 amplitudes), its tables buffers `k3_*` and
+    `k3c_*`; on a CPU state it runs K3's plain version, as the wrapper
+    does."""
 
     def __init__(self, model: SpinModel, backend: str | None = None,
                  device=None, dtype: torch.dtype | None = None):
@@ -147,14 +152,17 @@ class FlatHamiltonian(nn.Module):
         self.model = model
         self.backend = backend
         self.supports_axpy = False
-        self.plan = None
-        self._call = None
+        self.plans = None
+        self._calls = {}
         self.register_buffer("_anchor", torch.empty(0, device=device),
                              persistent=False)
         if backend == "fused":
-            self.plan = make_fused_plan(model)
-            for name, t in fused_tables(self.plan, device).items():
-                self.register_buffer("k3_" + name, t, persistent=False)
+            self.plans = {c: make_fused_plan(model, is_complex=c)
+                          for c in (False, True)}
+            for c, plan in self.plans.items():
+                for name, t in fused_tables(plan, device).items():
+                    self.register_buffer(_K3_PREFIX[c] + name, t,
+                                         persistent=False)
         elif backend == "dense":
             self.register_buffer(
                 "H", torch.as_tensor(build_dense_H(model),
@@ -167,7 +175,7 @@ class FlatHamiltonian(nn.Module):
                 persistent=False)
 
     def _apply(self, fn, recurse=True):
-        self._call = None  # tensors move: rebuild the descriptor
+        self._calls = {}  # tensors move: rebuild the descriptors
         return super()._apply(fn, recurse)
 
     @property
@@ -176,11 +184,14 @@ class FlatHamiltonian(nn.Module):
 
     def forward(self, psi: torch.Tensor) -> torch.Tensor:
         if self.backend == "fused":
-            if psi.device.type == "cuda" and self._call is None:
-                self._call = FusedCall(self.plan, {
-                    n[3:]: b for n, b in self.named_buffers()
-                    if n.startswith("k3_")})
-            return fused_matvec_apply(psi, self.model, self._call)
+            c = psi.is_complex()
+            call = self._calls.get(c)
+            if psi.device.type == "cuda" and call is None:
+                pre = _K3_PREFIX[c]
+                call = self._calls[c] = FusedCall(self.plans[c], {
+                    n[len(pre):]: b for n, b in self.named_buffers()
+                    if n.startswith(pre)})
+            return fused_matvec_apply(psi, self.model, call)
         if self.backend == "dense":
             return apply_H_dense(psi, self.H.to(real_dtype(psi.dtype)))
         if self.diag.dtype != real_dtype(psi.dtype):

@@ -8,13 +8,16 @@ For a full or embedded model one kernel launch computes
 over every hopping bond, for a real (float32) or complex (complex64) state.
 The kernel is CUDA C++ (`csrc/fused_matvec.cu`), built with nvcc for sm_90a
 on first use (`ops/cuda_build.py`) and loaded with ctypes. A block owns a
-tile of 2^tile_bits contiguous amplitudes; the plan here sorts the bonds by
-where their bits fall against that tile (local / straddle / tile-space) and
-factors the diagonal into a 2^tile_bits table, per-tile scalars and the
-straddle terms, so that no N-sized diagonal is read. What the JAX package
-needed on the TPU and this kernel does not: the one-hot matrix products for
-every index XOR, the bf16 hi+lo splits and their `exact_J` switch, and the
-stacking of a complex state into two planes.
+tile of 2^tile_bits contiguous amplitudes (at most 128 KB: 2^15 float32,
+2^14 complex64, so a plan is made for one element type) and stages it in
+shared memory by bulk asynchronous copies; partner chunks of 2^chunk_bits
+amplitudes (16 KB) stream through a ring beside it. The plan here sorts the
+bonds by where their bits fall against that tile (local / straddle /
+tile-space) and factors the diagonal into a 2^tile_bits table, per-tile
+scalars and the straddle terms, so that no N-sized diagonal is read. What
+the JAX package needed on the TPU and this kernel does not: the one-hot
+matrix products for every index XOR, the bf16 hi+lo splits and their
+`exact_J` switch, and the stacking of a complex state into two planes.
 
 `fused_matvec_apply_reference` is the plain torch version (the blocked
 apply, ops/blocked.py): the wrapper `fused_matvec_apply` uses it for tensors
@@ -28,10 +31,10 @@ or more non-local zz terms than the kernel's shared-memory lists hold makes
 `make_fused_plan` raise, and the caller asks for backend="blocked".
 
 One owner of the device tables. `FusedCall` is a plan with its tables on
-one device; `ops/apply.FlatHamiltonian` builds one and keeps the tables as
-its buffers. `fused_matvec_apply` without a `call` builds plan and tables
-for that one apply: keep a FlatHamiltonian (or a FusedCall) for repeated
-applies.
+one device; `ops/apply.FlatHamiltonian` builds one per element type and
+keeps the tables as its buffers. `fused_matvec_apply` without a `call`
+builds plan and tables for that one apply: keep a FlatHamiltonian (or a
+FusedCall) for repeated applies.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ __all__ = [
     "fused_tables",
     "fused_supported",
     "fused_pass_count",
+    "tile_bits_range",
     "fused_matvec_apply",
     "fused_matvec_apply_reference",
     "kernel_launch_count",
@@ -58,10 +62,18 @@ __all__ = [
     "build_kernel",
 ]
 
-DEFAULT_TILE_BITS = 12
+# The default tile, in bits, of a float32 and of a complex64 state: 32 KB,
+# so that two blocks fit an SM and each stages its next tile while it
+# computes this one. The largest tiles (128 KB: the TPU kernel's 2^15) fit
+# one block per SM and one tile slot, and ran about twice as long on the
+# H100 (`chip_smoke.py --k3-tiles`, PERF.md).
+DEFAULT_TILE_BITS = {False: 13, True: 12}
 FUSED_MIN_L = 6
-# csrc/fused_matvec.cu: K3_MAX_TILE_BITS, K3_MAX_BONDS (per class), K3_MAX_ZZ
-_MAX_TILE_BITS = 13
+# csrc/fused_matvec.cu: K3_MAX_TILE_BYTES, K3_MIN_TILE_BYTES,
+# K3_CHUNK_BYTES, K3_MAX_BONDS (per class), K3_MAX_ZZ
+_MAX_TILE_BYTES = 1 << 17
+_MIN_TILE_BYTES = 16
+_CHUNK_BYTES = 1 << 14
 _MAX_BONDS = 256
 _MAX_ZZ = 1024
 
@@ -73,7 +85,7 @@ class _K3Desc(ctypes.Structure):
                 ("zz_ij", ctypes.c_void_p), ("zz_J", ctypes.c_void_p),
                 ("fh", ctypes.c_void_p),
                 ("L", ctypes.c_int), ("k", ctypes.c_int),
-                ("is_complex", ctypes.c_int),
+                ("chunk_bits", ctypes.c_int), ("is_complex", ctypes.c_int),
                 ("n_local", ctypes.c_int), ("n_strad", ctypes.c_int),
                 ("n_tile", ctypes.c_int),
                 ("n_zs", ctypes.c_int), ("n_zb", ctypes.c_int),
@@ -81,8 +93,10 @@ class _K3Desc(ctypes.Structure):
 
 
 class FusedPlan:
-    """Host-side plan of K3 for one model and one tile size: the bonds
-    sorted into the kernel's three classes, and the factored diagonal.
+    """Host-side plan of K3 for one model, one element type (`is_complex`)
+    and one tile size: the bonds sorted into the kernel's three classes, and
+    the factored diagonal. chunk_bits: the ring's chunk, 2^chunk_bits
+    amplitudes (16 KB, or the whole tile where it is smaller).
 
     hop_ij [n, 2] int32 / hop_J [n] float32: local bonds (both bits <
     tile_bits), then straddle bonds (i local, j stored as j - tile_bits),
@@ -92,10 +106,14 @@ class FusedPlan:
     dtab [2^tile_bits]: every diagonal term whose bits are local. hbits: the
     local bits that carry a straddle zz term."""
 
-    def __init__(self, L, tile_bits, hop_ij, hop_J, n_local, n_strad, n_tile,
-                 zz_ij, zz_J, n_zs, n_zb, fh, dtab, hbits):
+    def __init__(self, L, tile_bits, is_complex, hop_ij, hop_J, n_local,
+                 n_strad, n_tile, zz_ij, zz_J, n_zs, n_zb, fh, dtab, hbits):
         self.L = L
         self.tile_bits = tile_bits
+        self.is_complex = bool(is_complex)
+        elem_bits = 3 if is_complex else 2
+        self.chunk_bits = min(tile_bits,
+                              _CHUNK_BYTES.bit_length() - 1 - elem_bits)
         self.hop_ij, self.hop_J = hop_ij, hop_J
         self.n_local, self.n_strad, self.n_tile = n_local, n_strad, n_tile
         self.zz_ij, self.zz_J = zz_ij, zz_J
@@ -105,22 +123,34 @@ class FusedPlan:
         self.hbits = hbits
 
 
-def make_fused_plan(model: SpinModel, tile_bits: int | None = None
-                    ) -> FusedPlan:
+def tile_bits_range(is_complex: bool = False) -> tuple[int, int]:
+    """(least, most) tile bits K3 takes for a float32 (complex64) state:
+    one 16-byte vector to 128 KB of shared memory."""
+    eb = 8 if is_complex else 4
+    return ((_MIN_TILE_BYTES // eb).bit_length() - 1,
+            (_MAX_TILE_BYTES // eb).bit_length() - 1)
+
+
+def make_fused_plan(model: SpinModel, tile_bits: int | None = None,
+                    is_complex: bool = False) -> FusedPlan:
     """Sort the model's bonds and diagonal terms for a tile of 2^tile_bits
-    amplitudes (the counterpart of the JAX package's `pallas_default_plan`
-    when tile_bits is None). The default tile is 2^12 amplitudes (16 KB
-    real, 32 KB complex in shared memory, several blocks per SM), or
-    2^(L-1) for L <= 12 so that there are two tiles. Raises ValueError for
-    a model whose bond or zz lists exceed the kernel's: such a model runs
-    through backend="blocked"."""
+    amplitudes of a float32 state, or of a complex64 one for `is_complex`
+    (the counterpart of the JAX package's `pallas_default_plan` when
+    tile_bits is None). The default tile is 32 KB, 2^13 float32 or 2^12
+    complex64 amplitudes (`DEFAULT_TILE_BITS`), or 2^(L-1) where that is
+    smaller, so that there are two tiles; up to 128 KB (the TPU kernel's
+    256 x 128 block of float32) may be asked for.
+    Raises ValueError for a model whose bond or zz lists exceed the
+    kernel's: such a model runs through backend="blocked"."""
     L = model.L
+    lo, hi = tile_bits_range(is_complex)
     if tile_bits is None:
-        tile_bits = min(DEFAULT_TILE_BITS, max(L - 1, 0))
+        tile_bits = min(DEFAULT_TILE_BITS[bool(is_complex)], max(L - 1, lo))
     k = int(tile_bits)
-    if not 0 <= k <= min(L, _MAX_TILE_BITS):
-        raise ValueError(f"tile_bits must be in [0, min(L, {_MAX_TILE_BITS})]"
-                         f", got {k}")
+    if not lo <= k <= min(L, hi):
+        raise ValueError(f"tile_bits must be in [{lo}, min(L, {hi})] for a "
+                         f"{'complex64' if is_complex else 'float32'} "
+                         f"state, got {k}")
 
     classes = ([], [], [])  # local, straddle, tile-space
     for (si, sj), J in zip(model.hop_sites, model.hop_J):
@@ -165,7 +195,7 @@ def make_fused_plan(model: SpinModel, tile_bits: int | None = None
     fh = np.zeros(max(L - k, 1), np.float32)
     fh[: L - k] = model.field[k:]
     return FusedPlan(
-        L, k, ij(hop), Jv(hop), len(classes[0]), len(classes[1]),
+        L, k, is_complex, ij(hop), Jv(hop), len(classes[0]), len(classes[1]),
         len(classes[2]), ij(zz), Jv(zz), len(zs), len(zb), fh,
         dtab.astype(np.float32), tuple(sorted({i for i, _, _ in zs})))
 
@@ -179,13 +209,14 @@ def fused_supported(model: SpinModel) -> bool:
 
 
 def fused_pass_count(plan: FusedPlan) -> float:
-    """State-sized passes over device memory of one K3 apply as designed:
-    the own read and the write, half a pass per tile-space bond (the
-    partner tile is read where the tile's mask is 1: half of the tiles) and
-    one per straddle bond (every partner tile is touched; a bond on a local
-    bit >= 3 reads half of each). Cache hits lower what reaches the
-    memory."""
-    strad = sum(0.5 if int(i) >= 3 else 1.0
+    """State-sized passes of one K3 apply as designed: the own tile's read
+    and the write, and the partner chunks staged through the ring. A
+    tile-space bond stages its partner tile where the tile's mask is 1 (half
+    of the tiles): half a pass. A straddle bond on local bit i stages, for
+    i below the chunk bits, the whole partner chunk of every output chunk
+    (one pass), else only the chunks of the active half (half a pass). Cache
+    hits lower what reaches the memory."""
+    strad = sum(0.5 if int(i) >= plan.chunk_bits else 1.0
                 for i, _ in plan.hop_ij[plan.n_local:
                                         plan.n_local + plan.n_strad])
     return 2.0 + 0.5 * plan.n_tile + strad
@@ -219,7 +250,8 @@ class FusedCall:
             return self._desc
         p, t = self.plan, self.tables
         d = _K3Desc()
-        d.L, d.k = p.L, p.tile_bits
+        d.L, d.k, d.chunk_bits = p.L, p.tile_bits, p.chunk_bits
+        d.is_complex = int(p.is_complex)
         d.n_local, d.n_strad, d.n_tile = p.n_local, p.n_strad, p.n_tile
         d.n_zs, d.n_zb = p.n_zs, p.n_zb
         d.n_hbits = len(p.hbits)
@@ -229,10 +261,10 @@ class FusedCall:
             x = t[name]
             want = torch.int32 if name.endswith("_ij") else torch.float32
             if (x.device != self.device or x.dtype != want
-                    or not x.is_contiguous()):
+                    or not x.is_contiguous() or x.data_ptr() % 16):
                 raise ValueError(
                     f"K3 table {name}: {x.dtype} on {x.device}, expected "
-                    f"contiguous {want} on {self.device}")
+                    f"contiguous, 16-byte aligned {want} on {self.device}")
             setattr(d, name, x.data_ptr() if x.numel() else None)
         self._desc = d
         return d
@@ -281,9 +313,9 @@ def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
     psi: [2^L] float32 or complex64 on CUDA (contiguous; anything else
     raises: K3 computes in float32 and the port does not cast around it;
     use the blocked apply for float64), any dtype on the CPU. call: a tile
-    plan with its tables on psi's device; by default the model's default
-    plan and its tables are built for this one apply. Returns a new tensor;
-    psi is not modified."""
+    plan for psi's element type with its tables on psi's device; by default
+    the model's default plan and its tables are built for this one apply.
+    Returns a new tensor; psi is not modified."""
     global _LAUNCHES
     dev = psi.device
     if dev.type == "cpu":
@@ -299,15 +331,20 @@ def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
             f"K3 does not take this model (mode {model.mode!r}, L={model.L}, "
             f"floor L >= {FUSED_MIN_L}): use backend=\"blocked\"")
     if call is None:
-        call = FusedCall(make_fused_plan(model), device=dev)
+        call = FusedCall(make_fused_plan(model, is_complex=psi.is_complex()),
+                         device=dev)
     plan = call.plan
     if plan.L != model.L:
         raise ValueError(f"plan is for L={plan.L}, model has L={model.L}")
+    if plan.is_complex != psi.is_complex():
+        raise ValueError("K3 plan is for a "
+                         f"{'complex64' if plan.is_complex else 'float32'} "
+                         f"state, got {psi.dtype}")
     if psi.dim() != 1 or psi.shape[0] != 1 << plan.L:
         raise ValueError(f"K3 state: shape {tuple(psi.shape)}, expected "
                          f"({1 << plan.L},)")
-    if not psi.is_contiguous() or psi.data_ptr() % 8:
-        raise ValueError("K3 state: must be contiguous and 8-byte aligned")
+    if not psi.is_contiguous() or psi.data_ptr() % 16:
+        raise ValueError("K3 state: must be contiguous and 16-byte aligned")
     if call.device != dev:
         raise ValueError(f"state on {dev}, K3 tables on {call.device}")
     if _LIB is None:
@@ -315,7 +352,6 @@ def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
     d = call.descriptor()
     out = torch.empty_like(psi)
     d.y, d.x = out.data_ptr(), psi.data_ptr()
-    d.is_complex = int(psi.is_complex())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _LIB.k3_launch(ctypes.byref(d), ctypes.c_void_p(stream))

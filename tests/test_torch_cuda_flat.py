@@ -81,6 +81,49 @@ def test_k3_is_deterministic(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["chain", "longrange"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_k3_every_tile_matches_plain(cuda_device, cplx, kind):
+    """Every tile from 2^8 to the largest that fits (2^15 float32, 2^14
+    complex64 amplitudes: 128 KB of shared memory) at L=16: the plain
+    version to 1e-6 of max |y|, exact zeros outside the sector, repeats
+    bit-identical, one launch per apply."""
+    m = _model(16, kind)
+    x = _state(m, cuda_device, cplx, seed=3)
+    want = fm.fused_matvec_apply_reference(x, m)
+    scale = float(want.abs().max())
+    mask = m.valid_mask(cuda_device)
+    lo, hi = fm.tile_bits_range(cplx)
+    assert (lo, hi) == ((1, 14) if cplx else (2, 15))
+    for k in range(8, hi + 1):
+        call = fm.FusedCall(fm.make_fused_plan(m, k, is_complex=cplx),
+                            device=cuda_device)
+        n0 = fm.kernel_launch_count()
+        y = fm.fused_matvec_apply(x, m, call)
+        torch.cuda.synchronize()
+        assert fm.kernel_launch_count() == n0 + 1
+        assert float((y - want).abs().max()) <= 1e-6 * scale, k
+        assert not y[~mask].any(), k
+        assert torch.equal(y, fm.fused_matvec_apply(x, m, call)), k
+
+
+@pytest.mark.gpu
+def test_k3_refuses_what_it_does_not_take(cuda_device):
+    """A plan for the other element type and a state that is not 16-byte
+    aligned (the bulk copies and vectors need it) raise; nothing runs."""
+    m = _model(12, "chain")
+    x = _state(m, cuda_device, False)
+    real_call = fm.FusedCall(fm.make_fused_plan(m), device=cuda_device)
+    n0 = fm.kernel_launch_count()
+    with pytest.raises(ValueError, match="complex64"):
+        fm.fused_matvec_apply(x.to(torch.complex64), m, real_call)
+    buf = torch.zeros((1 << 12) + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fm.fused_matvec_apply(buf[1:], m)
+    assert fm.kernel_launch_count() == n0
+
+
+@pytest.mark.gpu
 def test_float64_on_cuda_has_no_default_backend(cuda_device):
     m = _model(12, "chain")
     x = _state(m, cuda_device, False).double()
@@ -128,15 +171,17 @@ def test_flat_groundstate_and_trajectory_on_the_card(cuda_device):
 @pytest.mark.gpu
 def test_capacity_raises_on_the_card_and_below_the_floor_routes(cuda_device):
     """A CUDA state never gives way to the plain version quietly: above
-    K3's list capacity apply_H and matvec_fn raise and name
-    backend="blocked". The one rule that routes a CUDA state to the blocked
-    apply is the floor, L < 6."""
+    K3's list capacity (300 bonds local to the default 2^15 and 2^14
+    tiles, against 256) apply_H and matvec_fn raise and name
+    backend="blocked", for a float32 and a complex64 state. The one rule
+    that routes a CUDA state to the blocked apply is the floor, L < 6."""
     hop = pt.nn_hopping(16, 1.0) + [(11, 12, 0.01)] * 300
     m = pt.build_model(16, nup=8, hopping=hop, layout="embedded")
     x = _state(m, cuda_device, False)
     n0 = fm.kernel_launch_count()
-    with pytest.raises(ValueError, match='backend="blocked"'):
-        pt.apply_H(x, m)
+    for xs in (x, x.to(torch.complex64)):
+        with pytest.raises(ValueError, match='backend="blocked"'):
+            pt.apply_H(xs, m)
     with pytest.raises(ValueError, match='backend="blocked"'):
         pt.matvec_fn(m)
     H = pt.matvec_fn(m, backend="blocked")

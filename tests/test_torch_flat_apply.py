@@ -279,19 +279,28 @@ def test_k3_route_matches_pallas_interpret_cases(case):
 
 
 def _emulate_k3(d):
-    """Run fused_matvec.cu's grid, tile staging, per-tile bond lists,
-    partner skip and factored diagonal in numpy, reading every operand
-    through the pointers and integers of the ctypes descriptor."""
+    """Run fused_matvec.cu's schedule in numpy, reading every operand
+    through the pointers and integers of the ctypes descriptor: tiles of
+    2^k amplitudes, output chunks of 2^chunk_bits, 16-byte vectors (4
+    float32 or 2 complex64 lanes) with the lane swizzle for partners inside
+    a vector (a bond whose bits are both above it has one mask per
+    vector), the factored diagonal, and per chunk the compacted partner
+    list: a straddle bond stages chunk c (local bit i below the chunk bits)
+    or c ^ 2^(i - chunk_bits) for the active half of the chunks; a
+    tile-space bond stages chunk c where the tile's mask is 1. Returns the
+    output and the designed passes: 2 + the staged partner chunks over the
+    state."""
     def arr(ptr, n, ct=ctypes.c_float):
         if not ptr or n == 0:
             return np.zeros(0)
         return np.ctypeslib.as_array((ct * n).from_address(ptr))
 
-    k, L = d.k, d.L
-    n = 1 << k
-    comps = 2 if d.is_complex else 1
-    x = arr(d.x, (1 << L) * comps).astype(np.float64).reshape(-1, comps)
-    y = np.full_like(x, np.nan)
+    k, L, cb = d.k, d.L, d.chunk_bits
+    VB = 1 if d.is_complex else 2
+    VW, comps = 1 << VB, 2 if d.is_complex else 1
+    # the state as 16-byte vectors [n_vec, lane, component]
+    X = arr(d.x, (1 << L) * comps).astype(np.float64).reshape(-1, VW, comps)
+    Y = np.full_like(X, np.nan)
     nb = d.n_local + d.n_strad + d.n_tile
     hij = arr(d.hop_ij, 2 * nb, ctypes.c_int).reshape(-1, 2)
     hJ = arr(d.hop_J, nb).astype(np.float64)
@@ -299,12 +308,20 @@ def _emulate_k3(d):
     zij = arr(d.zz_ij, 2 * nz, ctypes.c_int).reshape(-1, 2)
     zJ = arr(d.zz_J, nz).astype(np.float64)
     fh = arr(d.fh, max(L - k, 1)).astype(np.float64)
-    dtab = arr(d.dtab, n).astype(np.float64)
-    e = np.arange(n)
-    reads = 0
-    for t in range(1 << (L - k)):  # one block per tile
-        base = t << k
-        tile = x[base:base + n]
+    dtab = arr(d.dtab, 1 << k).astype(np.float64)
+    lanes = np.arange(VW)
+    nvec = 1 << (cb - VB)
+    v = np.arange(nvec)
+    staged = 0
+
+    def bit_lanes(e0, i):  # [nvec, VW]: the lanes whose amplitude has bit i
+        return (((e0[:, None] + lanes) >> i) & 1).astype(bool)
+
+    def swz(p, s):  # lane l takes lane l ^ s
+        return p[:, lanes ^ s]
+
+    for t in range(1 << (L - k)):  # the persistent grid's tiles, any order
+        own = X[(t << k) >> VB:((t + 1) << k) >> VB]
 
         def szb(b):
             return ((t >> b) & 1) - 0.5
@@ -315,60 +332,109 @@ def _emulate_k3(d):
         dscal = sum(zJ[z] * szb(zij[z, 0]) * szb(zij[z, 1])
                     for z in range(d.n_zs, nz))
         dscal += sum(fh[b] * szb(b) for b in range(L - k))
-        dg = dtab + dscal
-        for q in range(d.n_hbits):
-            bit = d.hbits[q]
-            dg = dg + heff[bit] * (((e >> bit) & 1) - 0.5)
-        acc = dg[:, None] * tile
-        for q in range(d.n_local):
-            i, j = hij[q]
-            on = (((e >> i) ^ (e >> j)) & 1).astype(bool)
-            acc[on] += hJ[q] * tile[e[on] ^ ((1 << i) | (1 << j))]
-        for q in range(d.n_strad):
-            b = d.n_local + q
-            i, jt = hij[b]
-            want = ((t >> jt) & 1) ^ 1
-            off = (t ^ (1 << jt)) << k
-            on = ((e >> i) & 1) == want
-            acc[on] += hJ[b] * x[off + (e[on] ^ (1 << i))]
-        for q in range(d.n_tile):
-            b = d.n_local + d.n_strad + q
-            it, jt = hij[b]
-            if ((t >> it) ^ (t >> jt)) & 1:  # else the partner is not read
-                off = (t ^ (1 << it) ^ (1 << jt)) << k
-                acc += hJ[b] * x[off:off + n]
-                reads += 1
-        y[base:base + n] = acc
+        for c in range(1 << (k - cb)):
+            e0 = (c << cb) + (v << VB)  # in-tile index of each vector's lane 0
+            e = e0[:, None] + lanes
+            dg = dtab[e] + dscal
+            for q in range(d.n_hbits):
+                bit = d.hbits[q]
+                dg = dg + heff[bit] * (((e >> bit) & 1) - 0.5)
+            acc = dg[..., None] * own[e0 >> VB]
+            for q in range(d.n_local):
+                i, j = hij[q]
+                m = (1 << i) | (1 << j)
+                if i >= VB:  # both bits above the vector: one mask each
+                    on = (((e0 >> i) ^ (e0 >> j)) & 1).astype(bool)
+                    acc[on] += hJ[q] * own[(e0[on] ^ m) >> VB]
+                    continue
+                on = bit_lanes(e0, i) ^ bit_lanes(e0, j)
+                p = swz(own[(e0 ^ m) >> VB], m & (VW - 1))
+                acc[on] += hJ[q] * p[on]
+
+            def stage(elem):  # one ring stage: a partner chunk
+                nonlocal staged
+                staged += 1
+                return X[elem >> VB:(elem >> VB) + nvec]
+
+            for q in range(d.n_local, d.n_local + d.n_strad):
+                i, jt = hij[q]
+                want = ((t >> jt) & 1) ^ 1
+                base = (t ^ (1 << jt)) << k
+                if i >= cb:  # partner chunk c ^ 2^(i - cb), every lane
+                    if ((c >> (i - cb)) & 1) != want:
+                        continue
+                    acc += hJ[q] * stage(base + ((c ^ (1 << (i - cb))) << cb))
+                elif i >= VB:  # one mask per vector
+                    st = stage(base + (c << cb))
+                    on = ((e0 >> i) & 1) == want
+                    acc[on] += hJ[q] * st[v[on] ^ (1 << (i - VB))]
+                else:
+                    st = stage(base + (c << cb))
+                    on = bit_lanes(e0, i) == bool(want)
+                    p = swz(st[v ^ ((1 << i) >> VB)], (1 << i) & (VW - 1))
+                    acc[on] += hJ[q] * p[on]
+            for q in range(d.n_local + d.n_strad, nb):
+                it, jt = hij[q]
+                if ((t >> it) ^ (t >> jt)) & 1:  # else nothing is staged
+                    base = (t ^ (1 << it) ^ (1 << jt)) << k
+                    acc += hJ[q] * stage(base + (c << cb))
+            Y[((t << k) + (c << cb)) >> VB:][:nvec] = acc
+    y = Y.reshape(-1, comps)
     out = y[:, 0] if comps == 1 else y[:, 0] + 1j * y[:, 1]
-    return out, reads
+    return out, 2 + staged * (1 << cb) / (1 << L)
+
+
+def _oracle(mt, x):
+    """H x in float64 from the model's couplings, element by element (the
+    rule of build_dense_H without the N x N matrix, above L=12)."""
+    if mt.L <= 12:
+        return pt.build_dense_H(mt) @ x
+    s = np.arange(mt.n_states)
+    y = mt.diag("cpu", torch.float64).numpy() * x
+    for (i, j), J in zip(mt.hop_sites, np.asarray(mt.hop_J, np.float64)):
+        on = ((s >> i) ^ (s >> j)) & 1
+        y = y + J * on * x[s ^ ((1 << i) | (1 << j))]
+    return y
 
 
 @pytest.mark.parametrize("L,nup,k,kind,cplx", [
     (8, None, 3, "chain", False), (9, None, 4, "longrange", True),
     (10, 5, 5, "longrange", False), (12, 6, None, "chain", True),
     (12, 6, 7, "chain", False), (8, None, 8, "chain", False),
-    (8, 4, 0, "longrange", False), (13, 6, None, "chain", False)], ids=str)
+    (8, 4, 2, "longrange", False), (13, 6, None, "chain", False),
+    (14, 7, 13, "chain", False), (13, None, 12, "longrange", True),
+    (16, 8, 15, "chain", False), (16, 8, 15, "longrange", False),
+    (16, 8, 14, "chain", True), (16, 8, 14, "longrange", True),
+    (16, None, 14, "chain", False), (16, 8, 14, "longrange", False)],
+    ids=str)
 def test_k3_emulation_matches_dense_oracle(L, nup, k, kind, cplx):
     """The emulation is driven by the descriptor K3 receives (tables of a
-    float32 plan on the CPU); it must equal the float64 dense oracle to
-    the float32 rounding of the tables and the state (2e-6 of max |y|),
-    leave exact zeros outside the sector, and skip the partner tiles whose
-    mask is 0 (half of them for each tile-space bond)."""
+    float32 plan on the CPU); it must equal the float64 oracle to the
+    float32 rounding of the tables and the state (2e-6 of max |y|), leave
+    exact zeros outside the sector, and stage exactly the partner chunks
+    that `fused_pass_count` designs. (14, 13) and (13, 12 complex) put a
+    straddle bond's local bit above the chunk bits at a tile of two chunks;
+    the L=16 cases are the largest tiles, 2^15 float32 and 2^14 complex64
+    (128 KB, eight chunks)."""
     mj, mt = _pair(L, nup, kind)
     x = _state(mj, np.random.default_rng(L + 1), cplx)
     x32 = state_from_numpy(
         x.astype(np.complex64 if cplx else np.float32), "cpu")
-    plan = fm.make_fused_plan(mt, k)
+    plan = fm.make_fused_plan(mt, k, is_complex=cplx)
     assert plan.n_local + plan.n_strad + plan.n_tile == mt.n_bonds
-    assert plan.tile_bits == (min(12, L - 1) if k is None else k)
+    assert plan.tile_bits == (min(12 if cplx else 13, L - 1) if k is None
+                              else k)
+    assert plan.chunk_bits == min(plan.tile_bits, 11 if cplx else 12)
     d = fm.FusedCall(plan, device="cpu").descriptor()
+    assert (d.k, d.chunk_bits, d.is_complex) == (plan.tile_bits,
+                                                 plan.chunk_bits, int(cplx))
     out = torch.empty_like(x32)
-    d.x, d.y, d.is_complex = x32.data_ptr(), out.data_ptr(), int(cplx)
-    emu, reads = _emulate_k3(d)
-    want = pt.build_dense_H(mt) @ state_to_numpy(x32).astype(
-        np.complex128 if cplx else np.float64)
+    d.x, d.y = x32.data_ptr(), out.data_ptr()
+    emu, passes = _emulate_k3(d)
+    want = _oracle(mt, state_to_numpy(x32).astype(
+        np.complex128 if cplx else np.float64))
     assert np.abs(emu - want).max() <= 2e-6 * np.abs(want).max()
-    assert reads == plan.n_tile * (1 << (L - plan.tile_bits)) // 2
+    assert passes == fm.fused_pass_count(plan)
     if nup is not None:
         assert not emu[~mt.valid_mask().numpy()].any()
     ref = state_to_numpy(fm.fused_matvec_apply_reference(x32, mt))
@@ -376,25 +442,41 @@ def test_k3_emulation_matches_dense_oracle(L, nup, k, kind, cplx):
 
 
 def test_fused_plan_and_wrapper_contract():
-    assert ctypes.sizeof(fm._K3Desc) == 8 * 8 + 4 * 25 + 4
+    # 8 pointers, then L, k, chunk_bits, is_complex, 6 counts, hbits[16]
+    assert ctypes.sizeof(fm._K3Desc) == 8 * 8 + 4 * 26
     _, mt = _pair(16, 8, "chain")
-    plan = fm.make_fused_plan(mt)
-    assert (plan.tile_bits, plan.n_local, plan.n_strad, plan.n_tile) == (
-        12, 11, 1, 3)
-    assert (plan.n_zs, plan.n_zb, plan.hbits) == (1, 3, (11,))
-    assert fm.fused_pass_count(plan) == 2 + 0.5 * 3 + 0.5
+    plan = fm.make_fused_plan(mt)  # float32: a 2^13 tile of 2^12 chunks
+    assert (plan.tile_bits, plan.chunk_bits, plan.n_local, plan.n_strad,
+            plan.n_tile, plan.is_complex) == (13, 12, 12, 1, 2, False)
+    assert (plan.n_zs, plan.n_zb, plan.hbits) == (1, 2, (12,))
+    assert fm.fused_pass_count(plan) == 2 + 0.5 * 2 + 0.5  # bit 12 >= 12
+    cp = fm.make_fused_plan(mt, is_complex=True)  # 32 KB: 2^12 complex64
+    assert (cp.tile_bits, cp.chunk_bits, cp.n_local, cp.n_strad,
+            cp.n_tile, cp.is_complex) == (12, 11, 11, 1, 3, True)
+    assert fm.fused_pass_count(cp) == 2 + 0.5 * 3 + 0.5  # bit 11 >= 11
+    # the L=26 chain: 7.5 designed passes at 2^15 (the TPU kernel's tile);
+    # at 2^12 the tile is one chunk and the straddle bond reads all of it
+    chain = pt.xxz_chain(26, nup=13, layout="embedded")
+    assert [fm.fused_pass_count(fm.make_fused_plan(chain, k))
+            for k in (12, 13, 14, 15)] == [9.5, 8.5, 8.0, 7.5]
     assert fm.fused_supported(mt)
     assert not fm.fused_supported(pt.xxz_chain(16, nup=8))  # sector_kron
     small = pt.xxz_chain(5, nup=2, layout="embedded")
     assert not fm.fused_supported(small)  # below the floor: blocked by rule
     assert pt.matvec_fn(small, device="cpu").backend == "blocked"
-    with pytest.raises(ValueError, match="tile_bits"):
-        fm.make_fused_plan(mt, 14)
-    # all-pairs at L=26 fits the kernel's per-class lists
+    assert fm.tile_bits_range() == (2, 15)
+    assert fm.tile_bits_range(True) == (1, 14)
+    for k, cplx in ((16, False), (15, True), (1, False), (0, True)):
+        with pytest.raises(ValueError, match="tile_bits"):
+            fm.make_fused_plan(mt, k, is_complex=cplx)
+    # all-pairs at L=26 fits the kernel's per-class lists at both tiles
     big = pt.build_model(26, nup=13, layout="embedded",
                          hopping=pt.long_range_hopping(26, lambda i, j: 1.0))
-    bp = fm.make_fused_plan(big)
-    assert max(bp.n_local, bp.n_strad, bp.n_tile) == 168
+    for k, most in ((13, 169), (15, 165)):
+        bp = fm.make_fused_plan(big, k)
+        assert max(bp.n_local, bp.n_strad, bp.n_tile) == most
+    bc = fm.make_fused_plan(big, is_complex=True)
+    assert max(bc.n_local, bc.n_strad, bc.n_tile) == 168
     assert fm.fused_supported(big)
     # K3 takes CUDA tensors; other devices are refused, never rerouted
     with pytest.raises(ValueError, match="CUDA"):
@@ -432,9 +514,12 @@ def test_fused_module_tables_are_buffers():
     _, mt = _pair(10, 5, "longrange")
     H = pt.FlatHamiltonian(mt, backend="fused", device="cpu")
     names = {n for n, _ in H.named_buffers()}
-    assert {"k3_dtab", "k3_hop_ij", "k3_hop_J", "k3_zz_ij", "k3_zz_J",
-            "k3_fh"} <= names
+    tables = {"dtab", "hop_ij", "hop_J", "zz_ij", "zz_J", "fh"}
+    assert {"k3_" + n for n in tables} | {"k3c_" + n for n in tables} <= names
     assert H.k3_hop_ij.dtype == torch.int32 and H.device.type == "cpu"
+    # one plan per element type: 2^(L-1) amplitudes at L=10 for both
+    assert [H.plans[c].is_complex for c in (False, True)] == [False, True]
+    assert H.k3_dtab.shape == H.k3c_dtab.shape == (512,)
     x = state_from_numpy(_state(sd.build_model(
         10, nup=5, layout="embedded"), np.random.default_rng(0)), "cpu")
     assert torch.equal(H(x), tbl.apply_H_blocked(x, mt))
