@@ -14,7 +14,11 @@ structure_factor_Sq_kron, kpm_correlation_matrix_kron), every H apply
 through K1; and the flat-state path on the
 embedded layout (ground state, Lanczos and KPM S(q, omega), domain-wall
 trajectory on one vector of 2^L amplitudes), with every H apply through K3,
-the hand-written CUDA fused matvec; and the sharded kron path (`mesh=`):
+the hand-written CUDA fused matvec; the same solvers on the compact sector
+layout (the ascending Sz sector and its ELL neighbour table, built on the
+card; the ell gather apply is plain torch, as the JAX package's is an XLA
+gather); flat quantum typicality on both layouts (K3, ell); checkpointed
+ground states and trajectories resumed bit for bit; and the sharded kron path (`mesh=`):
 the ground state, the KPM S(q, omega) and the trajectory again on
 LocalMesh(--shards): four row shards of every kron group on the one card, every
 fused group's local block through K1's crossw variant (its mid|hi terms read
@@ -78,6 +82,27 @@ with no result line):
            float32 recurrences, held to 5e-2 of the peak and 1e-3 in each
            row's weight), szsz and S(q) (kron against flat observables,
            1e-5)
+  compact-oracle  L=16 compact models (XXZ with a field, all-pairs), float64
+           and float32: the card's torch build of the states and ELL table
+           equal to the host build bit for bit, the ell apply on the card
+           against the CPU apply (1e-12 / 1e-6 of max|y|, real and complex)
+  compact-main  --L-compact (default 28) compact Heisenberg chain, Sz=0: the
+           torch build's time and table bytes; ms per ell apply, float32
+           and complex64, beside its bytes bound (table + 3 N-sized passes)
+           and a torch sparse CSR product of the same matrix; the restarted
+           ground state (E0 within 1e-4 of main's kron E0, residual <= 1e-3),
+           kpm_sqw at main's q-points, omega grid and rescaling (within 5e-2
+           of main's peak), lanczos_sqw (3 q x 60, rows positive), the 5-step
+           domain-wall trajectory of evolve's XXZ chain from its bounds
+           (<Sz_i> within 1e-5 of the kron run), peak memory
+  flat-typicality  <Sz_a(t) Sz_a(0)>_beta=1 at --L-flat on the embedded
+           layout (K3) and the compact layout (ell): finite, Im C(0) ~ 0,
+           C(0) = szsz of the thermal state of the same seed; L=12 mean of 8
+           samples within 0.05 of dense expm; L=16 krylov, chebyshev and
+           rk4 within 1e-4
+  checkpoint  L=20 compact: a checkpointed ground state cut after 2 of 4
+           cycles and resumed, and a trajectory cut after 4 of 6 steps and
+           resumed, each equal to the uninterrupted run bit for bit
   k1-crossw  K1's crossw variant (float32 and bfloat16 states) against its
            plain version on the card, on the local blocks of LocalMesh(D) at
            L=16 (every group fused, D = 2 and 4) and at --L (D = --shards):
@@ -107,9 +132,13 @@ with no result line):
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^15
            (2^14 complex64), each held to the default tile's result
+  ell-chunks (--ell-chunks) the ell apply's time at --L-compact for row
+           chunks of 2^16..2^22, each equal to the default chunk's result
   kron-tiles (--kron-tiles) K1's and K2's time at --L with 32- and 64-row
            output tiles beside the kernel's rule; results identical
-Then one JSON line with the kernel records, and last the device line.
+Then one JSON line with the ell apply's numbers (plain torch, not a
+kernel: its times, bounds, CSR time and apply counts per phase), one with
+the kernel records, and last the device line.
 
 The bounds in the kernel records are the larger of bytes over 3.35 TB/s
 (each input read once, each output written once) and the operations of the
@@ -119,12 +148,13 @@ over 67 TFLOP/s (the H100 SXM data sheet). `fma_route_bound_ms` is the
 bound with every product on the FMAs; `fma_ms` the FMA route's time on the
 same launches, measured beside the tensor-core route (`tc_ms_beside_fma`).
 
-The sharded phases come on top of the earlier ones, none of which is cut
-in depth for them: with the defaults the whole script takes 5 to 6 minutes
-on an H100 (its limit is 20).
+The sharded and compact phases come on top of the earlier ones, none of
+which is cut in depth for them: with the defaults the whole script takes
+about 6 minutes on an H100 (its limit is 20).
 
-Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--shards 4] [--profile]
-                             [--k3-tiles] [--kron-tiles]
+Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--L-compact 28]
+                             [--shards 4] [--profile] [--k3-tiles]
+                             [--kron-tiles] [--ell-chunks]
        python3 chip_smoke.py --k3-against DIR [--L-flat 26]
 (--k3-against runs only the k3 phase, of the checkout at DIR and of this
 one in turns, and prints no result line.)
@@ -1150,13 +1180,16 @@ def _flat_model(L, kind="chain"):
                         layout="embedded")
 
 
-def _flat_state(m, dev, cplx, seed):
-    """A random state in the model's sector (zero outside it)."""
+def _flat_state(m, dev, cplx, seed, dtype=torch.float32):
+    """A random state in the model's sector (zero outside it where the
+    model has a mask)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(m.n_states, generator=g, device=dev)
+    x = torch.randn(m.n_states, generator=g, device=dev, dtype=dtype)
     if cplx:
-        x = torch.complex(x, torch.randn(m.n_states, generator=g, device=dev))
-    return torch.where(m.valid_mask(dev), x, torch.zeros_like(x))
+        x = torch.complex(x, torch.randn(m.n_states, generator=g, device=dev,
+                                         dtype=dtype))
+    mask = m.valid_mask(dev)
+    return x if mask is None else torch.where(mask, x, torch.zeros_like(x))
 
 
 def csr_hamiltonian(model, dev):
@@ -1592,6 +1625,446 @@ def phase_flat_main(L, dev):
     if not dS <= 1e-5:
         raise RuntimeError(f"flat and kron <Sz_i> differ by {dS}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the compact sector layout (the ell apply), flat typicality, checkpoints
+# ---------------------------------------------------------------------------
+
+
+class _EllApplies:
+    """Counts the ell applies of every FlatHamiltonian while active (a
+    global forward hook): the applies of a phase, the runners' own modules
+    included. The ell apply is plain torch, not a kernel: these counts are
+    the phase's apply counts, not kernel launches."""
+
+    def __init__(self):
+        self.n = 0
+        self._h = None
+
+    def _hook(self, mod, args, out):
+        if getattr(mod, "backend", None) == "ell":
+            self.n += 1
+
+    def __enter__(self):
+        self._h = torch.nn.modules.module.register_module_forward_hook(
+            self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._h.remove()
+
+
+def _compact_model(L, kind="heisenberg", dtype=torch.float32):
+    """Compact Sz=0 models: the Heisenberg chain of `main`, the XXZ chain of
+    `evolve` (Jxy=1, Jz=0.5), that chain with a non-uniform field, or an
+    all-pairs model."""
+    import spindynamics_tpu_torch as pt
+
+    if kind == "heisenberg":
+        return pt.heisenberg_chain(L, nup=L // 2, layout="compact",
+                                   dtype=dtype)
+    if kind == "longrange":
+        return pt.build_model(
+            L, nup=L // 2, layout="compact", dtype=dtype,
+            hopping=pt.long_range_hopping(L, lambda i, j: 1.0 / (j - i)),
+            zz=pt.long_range_hopping(L, lambda i, j: 0.3 / (j - i) ** 2),
+            onsite_field=np.linspace(-0.2, 0.3, L))
+    h = np.linspace(-0.2, 0.3, L) if kind == "xxz-field" else None
+    return pt.xxz_chain(L, Jxy=1.0, Jz=0.5, h=h, nup=L // 2,
+                        layout="compact", dtype=dtype)
+
+
+def phase_compact_oracle(dev):
+    """L=16 on the card, float64 and float32: the states and the ELL table
+    of the torch build equal the host build's bit for bit, the diagonal to
+    rounding, and the ell apply on the card matches the CPU apply on the
+    same vector (real and complex; float64 1e-12, float32 1e-6 of
+    max|y|: addmv sums the bonds in another order on each device)."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.model import sector_setup
+
+    for kind in ("xxz-field", "longrange"):
+        for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+            m = _compact_model(16, kind, dt)
+            (s_d, d_d, t_d), t_dev = _sync_time(
+                lambda: sector_setup(m, dev))
+            s_h, d_h, t_h = sector_setup(m, "cpu")
+            if not (torch.equal(s_d.cpu(), s_h) and torch.equal(t_d.cpu(),
+                                                                t_h)):
+                raise RuntimeError(f"L=16 {kind} {dt}: the card's states or "
+                                   "ELL table differ from the host build")
+            dd = float((d_d.cpu() - d_h).abs().max())
+            if not dd <= tol * float(d_h.abs().max()):
+                raise RuntimeError(f"L=16 {kind}: diagonal off by {dd}")
+            mv_d = pt.matvec_fn(m, device=dev)
+            mv_h = pt.matvec_fn(m, device="cpu")
+            errs = []
+            for cplx in (False, True):
+                x = _flat_state(m, dev, cplx, 16, dt)
+                y = mv_d(x)
+                want = mv_h(x.cpu())
+                rel = float((y.cpu() - want).abs().max()) / float(
+                    want.abs().max())
+                if not rel <= tol:
+                    raise RuntimeError(f"L=16 {kind} {dt}: ell on the card "
+                                       f"off the CPU apply by {rel:.3e}")
+                if not torch.equal(y, mv_d(x)):
+                    raise RuntimeError(f"L=16 {kind}: two ell applies of "
+                                       "one input differ")
+                errs.append(rel)
+            print(f"compact-oracle L=16 {kind} {str(dt)[6:]}: N "
+                  f"{m.n_states}, {m.n_bonds} bonds | states and ELL table "
+                  f"of the card's build equal the host build's, diagonal "
+                  f"max|d| {dd:.1e} | torch build {t_dev:.3f} s | ell apply "
+                  f"card vs CPU max|d|/max|y| real {errs[0]:.2e} complex "
+                  f"{errs[1]:.2e} (<= {tol:g}), repeats bit-identical")
+
+
+def csr_from_ell(mv, chunk=1 << 20):
+    """The matrix of an ell FlatHamiltonian as a torch sparse CSR tensor
+    (int32 indices, values in the diagonal's dtype), built from its table
+    on its device, row chunk by row chunk: per row the diagonal, then one
+    entry per bond with a partner. The library yardstick of the ell apply:
+    it is timed, never used by the port."""
+    nbr, diag = mv.nbr, mv.diag
+    dev = nbr.device
+    N, nb = nbr.shape
+    J = torch.as_tensor(mv.model.hop_J, device=dev).to(diag.dtype)
+    cnt = torch.cat([1 + (nbr[s:s + chunk] >= 0).sum(1)
+                     for s in range(0, N, chunk)])
+    crow = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+    crow[1:] = torch.cumsum(cnt, 0)
+    del cnt
+    nnz = int(crow[-1])
+    col = torch.empty(nnz, dtype=torch.int32, device=dev)
+    val = torch.empty(nnz, dtype=diag.dtype, device=dev)
+    for s in range(0, N, chunk):
+        e = min(N, s + chunk)
+        c = torch.cat([torch.arange(s, e, dtype=torch.int32,
+                                    device=dev)[:, None], nbr[s:e]], 1)
+        v = torch.cat([diag[s:e, None], J.expand(e - s, nb)], 1)
+        keep = c >= 0
+        p0, p1 = int(crow[s]), int(crow[e])
+        col[p0:p1] = c[keep]
+        val[p0:p1] = v[keep]
+    return torch.sparse_csr_tensor(crow, col, val, size=(N, N),
+                                   check_invariants=False)
+
+
+def kron_references(L, dev):
+    """(E0, S, KPM info, trajectory info with obs) of the main and evolve
+    phases' runs at L, for a --L-compact other than --L."""
+    import spindynamics_tpu_torch as pt
+
+    m = pt.heisenberg_chain(L, nup=L // 2)
+    qs = [2 * np.pi * k / L for k in (4, 7, L // 2)]
+    E0, psi, info, _ = pt.groundstate_kron(
+        m, lanc_m=40, cycles=6, target_residual=1e-3, device=dev)
+    S, kinfo = pt.kpm_sqw_kron(m, qs, np.linspace(0.0, 4.0, 200), kpm_m=100,
+                               psi0=psi, E0=E0, info=info, device=dev)
+    me = _evolve_model(L)
+    _, obs, einfo = pt.evolve_trajectory_kron(
+        me, pt.domain_wall_bitstring(me), dt=0.1, n_steps=5, cheb_n=40,
+        device=dev)
+    return E0, S, kinfo, dict(einfo, obs=obs)
+
+
+def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
+    """The compact layout at L through the entry points: the torch build of
+    the Heisenberg chain of `main` (states, diagonal, ELL table) and the
+    ell apply's times beside its bound and a CSR product of the same
+    matrix; the restarted ground state against main's kron E0, kpm_sqw at
+    main's q-points, omega grid and rescaling against main's KPM S(q,
+    omega), lanczos_sqw (3 q x 60); then the 5-step domain-wall trajectory
+    of the XXZ chain of `evolve` from its bounds against the kron run's
+    <Sz_i>. Returns the ell record."""
+    import spindynamics_tpu_torch as pt
+
+    m = _compact_model(L)
+    N = m.n_states
+    qs = [2 * np.pi * k / L for k in (4, 7, L // 2)]
+    omega = np.linspace(0.0, 4.0, 200)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv, t_build = _sync_time(lambda: pt.matvec_fn(m, device=dev))
+    table_bytes = mv.nbr.numel() * mv.nbr.element_size()
+    rec = {"L": L, "N": N, "bonds": m.n_bonds, "build_s": t_build,
+           "table_bytes": table_bytes}
+    for cplx in (False, True):
+        x = _flat_state(m, dev, cplx, L)
+        ms = _event_ms(lambda: mv(x), reps=10)
+        comp = 8 if cplx else 4
+        # the table once, the state and the diagonal read, the result
+        # written (the diagonal is float32 in either case)
+        bound = _bound(table_bytes + N * (2 * comp + 4), 0.0)
+        tag = "complex" if cplx else "real"
+        rec[tag] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"compact-main L={L} ell apply {tag}: {ms:.3f} ms (median of "
+              f"10) | bound {bound[0]:.3f} ms by {bound[1]} "
+              f"({(table_bytes + N * (2 * comp + 4)) / 1e9:.3f} GB) | "
+              f"{ms / bound[0]:.2f}x the bound")
+    x = _flat_state(m, dev, False, L)
+    H = csr_from_ell(mv)
+    y, want = H @ x, mv(x)
+    err = float((y - want).abs().max()) / float(want.abs().max())
+    if not err <= 1e-6:
+        raise RuntimeError(f"CSR product off the ell apply by {err:.3e}")
+    csr_ms = _event_ms(lambda: H @ x, reps=10)
+    rec["csr_ms"], rec["nnz"] = csr_ms, H.values().shape[0]
+    rec["peak_with_csr_bytes"] = torch.cuda.max_memory_allocated()
+    del H, x, y, want
+    torch.cuda.empty_cache()
+    # the solvers' peak: the module's table, states and diagonal, and the
+    # vectors of each solve
+    torch.cuda.reset_peak_memory_stats()
+    print(f"compact-main L={L}: N {N}, table {table_bytes / 2**30:.2f} GiB "
+          f"({table_bytes} bytes), torch build {t_build:.2f} s | torch "
+          f"sparse CSR H @ psi ({rec['nnz']} non-zeros, max|d|/max|y| "
+          f"{err:.1e}) {csr_ms:.3f} ms against ell {rec['real']['ms']:.3f} "
+          f"ms")
+    with _EllApplies() as n_gs:
+        (E0, psi, info), t_gs = _sync_time(
+            lambda: pt.lanczos_groundstate_restarted(
+                mv, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
+                generator=torch.Generator(device=dev).manual_seed(0)))
+    with _EllApplies() as n_kpm:
+        K, t_kpm = _sync_time(lambda: pt.kpm_sqw(
+            psi, m, qs, omega, a=kinfo["a"], b=kinfo["b"], kpm_m=100,
+            E0=E0_main, matvec=mv).cpu().numpy())
+    with _EllApplies() as n_sqw:
+        S, t_sqw = _sync_time(lambda: pt.lanczos_sqw(
+            psi, m, qs, omega, lanc_m=60, eta=0.1, matvec=mv))
+    del psi, mv
+    torch.cuda.empty_cache()
+    me = _compact_model(L, "xxz")
+    with _EllApplies() as n_ev:
+        (psi_t, obs), t_ev = _sync_time(lambda: pt.evolve_trajectory(
+            me, pt.domain_wall_state(me, device=dev), dt=0.1, n_steps=5,
+            cheb_n=40, Ebounds=einfo["Ebounds"]))
+    peak = torch.cuda.max_memory_allocated()
+    norm = float(torch.linalg.vector_norm(psi_t))
+    del psi_t
+    dE = abs(E0 - E0_main)
+    dK = float(np.abs(K - S_main).max()) / float(np.abs(S_main).max())
+    dS = float(np.abs(obs - einfo["obs"]).max())
+    rec.update(ground_state_s=t_gs, kpm_s=t_kpm, lanczos_sqw_s=t_sqw,
+               trajectory_s=t_ev, peak_bytes=peak,
+               applies={"ground_state": n_gs.n, "kpm_sqw": n_kpm.n,
+                        "lanczos_sqw": n_sqw.n, "trajectory": n_ev.n})
+    print(f"compact-main L={L}: E0 {E0:.6f} (kron {E0_main:.6f}, |d| "
+          f"{dE:.2e} <= 1e-4) residual {info['residual']:.3e} cycles "
+          f"{info['cycles']} polished {info.get('polished', 0)} | ground "
+          f"state {t_gs:.2f} s ({n_gs.n} applies), kpm_sqw (3 q x 100, "
+          f"main's a, b) {t_kpm:.2f} s ({n_kpm.n}), lanczos_sqw (3 q x 60) "
+          f"{t_sqw:.2f} s ({n_sqw.n}), trajectory (5 steps, evolve's bounds) "
+          f"{t_ev:.2f} s ({n_ev.n}) | peak {peak / 2**30:.2f} GiB (with "
+          f"the CSR matrix {rec['peak_with_csr_bytes'] / 2**30:.2f} GiB)")
+    print(f"compact-main L={L}: kpm_sqw against main's kpm_sqw_kron, max "
+          f"|dS| / max S {dK:.2e} (<= 5e-2; two ground states, each to "
+          f"residual 1e-3) | lanczos_sqw max {S.max():.4f}, row weights "
+          f"{[round(float(w), 4) for w in S.sum(axis=1)]} | trajectory "
+          f"<Sz_i> against the kron run max |d| {dS:.2e} (<= 1e-5), norm "
+          f"{norm:.7f}")
+    if not info["residual"] <= 1e-3:
+        raise RuntimeError(f"compact residual {info['residual']} > 1e-3")
+    if not dE <= 1e-4:
+        raise RuntimeError(f"compact and kron E0 differ by {dE}")
+    if not (np.all(np.isfinite(K)) and dK <= 5e-2):
+        raise RuntimeError(f"compact and kron KPM S differ by {dK} of the "
+                           "peak")
+    if not (np.all(np.isfinite(S)) and np.all(S.sum(axis=1) > 0)
+            and S.min() >= -1e-6 * S.max()):
+        raise RuntimeError("compact lanczos_sqw rows not positive")
+    if not (np.all(np.isfinite(obs)) and dS <= 1e-5):
+        raise RuntimeError(f"compact and kron <Sz_i> differ by {dS}")
+    if not abs(norm - 1.0) <= 1e-4:
+        raise RuntimeError(f"compact trajectory norm {norm}")
+    return rec
+
+
+def phase_ell_chunks(L, dev):
+    """(--ell-chunks) The ell apply's time at L for row chunks of 2^16 ..
+    2^22 (the default ELL_CHUNK is 2^20), float32 and complex64, each held
+    to the default chunk's result (the same sums, 1e-6 of max|y|: gemv
+    may block its rows by their count)."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import apply as ap
+
+    m = _compact_model(L)
+    mv = pt.matvec_fn(m, device=dev)
+    for cplx in (False, True):
+        x = _flat_state(m, dev, cplx, L)
+        want = mv(x)
+        rows = []
+        for k in range(16, 23, 2):
+            def f():
+                return ap.apply_H_ell(x, m, mv.nbr, mv.diag, chunk=1 << k)
+
+            rel = float((f() - want).abs().max()) / float(
+                want.abs().max())
+            if not rel <= 1e-6:
+                raise RuntimeError(f"chunk 2^{k}: off the default chunk by "
+                                   f"{rel:.2e}")
+            rows.append(f"2^{k}: {_event_ms(f, reps=5):.3f} ms")
+        print(f"ell-chunks L={L} {'complex' if cplx else 'real'}: "
+              + " | ".join(rows))
+
+
+def _exact_thermal(m, beta, a, b, ts, dev):
+    """<Sz_a(t) Sz_b(0)>_beta = Tr[e^{-beta H} e^{iHt} Sz_a e^{-iHt} Sz_b]
+    / Z over the model's basis, by dense matrix exponentials in float64 on
+    `dev`."""
+    import spindynamics_tpu_torch as pt
+
+    H = torch.as_tensor(pt.build_dense_H(m), device=dev)
+    s = m.basis_states(dev)
+    sza = torch.diag(((s >> a) & 1).double() - 0.5).to(torch.complex128)
+    szb = torch.diag(((s >> b) & 1).double() - 0.5).to(torch.complex128)
+    rho = torch.linalg.matrix_exp(-beta * H).to(torch.complex128)
+    Hc = H.to(torch.complex128)
+    out = []
+    for t in ts:
+        U = torch.linalg.matrix_exp(-1j * t * Hc)
+        out.append(complex(torch.trace(rho @ U.conj().T @ sza @ U @ szb)
+                           / torch.trace(rho)))
+    return np.asarray(out)
+
+
+def _typicality_sample(m, dev, seed, site, ts, **kw):
+    """(C(t), thermal state's szsz[site, site], seconds) of one sample at
+    beta=1 through the entry points: typicality_correlation_function and
+    thermal_state from the same generator seed."""
+    import spindynamics_tpu_torch as pt
+
+    op = pt.make_spin_operator(site, "z")
+    C, dt = _sync_time(lambda: pt.typicality_correlation_function(
+        m, 1.0, op, op, ts, generator=torch.Generator(
+            device=dev).manual_seed(seed), kry_m=30, **kw))
+    psi_b, _ = pt.thermal_state(
+        m, 1.0, generator=torch.Generator(device=dev).manual_seed(seed),
+        kry_m=30)
+    zz, _ = pt.szsz_matrix(psi_b, m)
+    return C, float(zz[site, site]), dt
+
+
+def phase_flat_typicality(L, dev):
+    """Flat quantum typicality: <Sz_a(t) Sz_a(0)>_beta=1 at t = 0, 0.5, 1
+    on the embedded layout at L (every apply through K3, complex64) and on
+    the compact layout at the same L (the ell apply); C finite, Im C(0) ~ 0,
+    C(0) equal to szsz of the thermal state drawn from the same seed. Then
+    at L=12 (compact) the mean of 8 samples against dense expm on the card
+    (0.05, the JAX package's tolerance for the exact average), and at L=16
+    (embedded, K3) krylov, chebyshev and rk4 at t = 0.3. Returns K3's
+    launches at L."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+
+    ts = (0.0, 0.5, 1.0)
+    a = L // 2
+    out = {}
+    for layout in ("embedded", "compact"):
+        m = (_flat_model(L) if layout == "embedded"
+             else _compact_model(L, "xxz"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fm.reset_kernel_launch_count()
+        with _EllApplies() as n_ell:
+            C, zz, dt = _typicality_sample(m, dev, 5, a, ts)
+        n_k3 = fm.kernel_launch_count()
+        peak = torch.cuda.max_memory_allocated()
+        out[layout] = (n_k3, n_ell.n, dt)
+        print(f"flat-typicality L={L} {layout} (N {m.n_states}): C(t) at t "
+              f"{ts}: {[complex(round(z.real, 6), round(z.imag, 6)) for z in C]}"
+              f" | {dt:.2f} s, peak {peak / 2**30:.2f} GiB | K3 launches "
+              f"{n_k3}, ell applies {n_ell.n} | C(0) - szsz of the thermal "
+              f"state {abs(C[0] - zz):.1e} (<= 1e-5)")
+        if not np.all(np.isfinite(C)):
+            raise RuntimeError(f"{layout}: non-finite typicality C(t)")
+        if not (abs(C[0].imag) <= 1e-6 and abs(C[0] - zz) <= 1e-5):
+            raise RuntimeError(f"{layout}: C(0) = {C[0]}, szsz {zz}")
+        if layout == "embedded" and not n_k3 > 0:
+            raise RuntimeError("embedded typicality launched K3 no time")
+        if layout == "compact" and not (n_ell.n > 0 and n_k3 == 0):
+            raise RuntimeError("compact typicality did not run the ell "
+                               "apply alone")
+    m12 = _compact_model(12, "xxz")
+    want = _exact_thermal(m12, 1.0, 5, 6, (0.0, 0.3), dev)
+    got = np.mean([pt.typicality_correlation_function(
+        m12, 1.0, pt.make_spin_operator(5, "z"), pt.make_spin_operator(6, "z"),
+        (0.0, 0.3), generator=torch.Generator(device=dev).manual_seed(seed),
+        kry_m=30) for seed in range(8)], axis=0)
+    d12 = float(np.abs(got - want).max())
+    m16 = _flat_model(16)
+    Cs = {meth: pt.typicality_correlation_function(
+        m16, 0.5, pt.make_spin_operator(8, "z"), pt.make_spin_operator(8, "z"),
+        (0.0, 0.3), method=meth, cheb_n=40, rk4_substeps=60,
+        generator=torch.Generator(device=dev).manual_seed(3), kry_m=30)
+        for meth in ("krylov", "chebyshev", "rk4")}
+    d16 = max(float(np.abs(Cs[k] - Cs["krylov"]).max()) for k in Cs)
+    print(f"flat-typicality L=12 compact: mean of 8 samples "
+          f"{[complex(round(z.real, 5), round(z.imag, 5)) for z in got]} "
+          f"against dense expm {[complex(round(z.real, 5), round(z.imag, 5)) for z in want]}"
+          f", max |d| {d12:.2e} (<= 0.05) | L=16 embedded: krylov, "
+          f"chebyshev, rk4 at t 0.3 max |d| {d16:.2e} (<= 1e-4)")
+    if not d12 <= 0.05:
+        raise RuntimeError(f"L=12 typicality mean off exact by {d12}")
+    if not d16 <= 1e-4:
+        raise RuntimeError(f"L=16 typicality methods differ by {d16}")
+    return out
+
+
+def phase_checkpoint(dev, L=20):
+    """Checkpoint/resume on the card at L (compact): a checkpointed ground
+    state cut after 2 restart cycles and resumed to 4 equals the
+    uninterrupted 4 cycles bit for bit, and a trajectory cut after 4 of 6
+    steps (a save every 2) and resumed, its bounds read back from the
+    checkpoint, equals the uninterrupted 6 steps bit for bit. The
+    checkpoints are written under build/ of the checkout and removed."""
+    import shutil
+
+    import spindynamics_tpu_torch as pt
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    m = _compact_model(L)
+    mv = pt.matvec_fn(m, device=dev)
+
+    def gs(path, cycles):
+        return pt.lanczos_groundstate_checkpointed(
+            mv, m.n_states, str(root / path), lanc_m=40, cycles=cycles,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+
+    (E_a, psi_a, _), t_a = _sync_time(lambda: gs("whole", 4))
+    gs("cut", 2)
+    (E_b, psi_b, info_b), t_b = _sync_time(lambda: gs("cut", 4))
+    gs_equal = E_a == E_b and torch.equal(psi_a, psi_b)
+    me = _compact_model(L, "xxz")
+    psi0 = pt.domain_wall_state(me, device=dev)
+
+    def traj(n, **kw):
+        return pt.evolve_trajectory(
+            me, psi0, dt=0.1, n_steps=n, cheb_n=40,
+            generator=torch.Generator(device=dev).manual_seed(7), **kw)
+
+    p_a, o_a = traj(6)
+    traj(4, checkpoint_dir=str(root / "traj"), checkpoint_every=2)
+    p_b, o_b = traj(6, checkpoint_dir=str(root / "traj"), checkpoint_every=2,
+                    resume=True)
+    traj_equal = torch.equal(p_a, p_b) and np.array_equal(o_a, o_b)
+    shutil.rmtree(root)
+    print(f"checkpoint L={L} compact: ground state 4 cycles {t_a:.2f} s, E0 "
+          f"{E_a:.8f}; cut after 2 and resumed (resumed_at "
+          f"{info_b['resumed_at']}) {t_b:.2f} s, E0 {E_b:.8f}: bit for bit "
+          f"{gs_equal} | trajectory 6 steps, cut after 4 and resumed with "
+          f"the saved bounds: bit for bit {traj_equal}")
+    if not gs_equal:
+        raise RuntimeError("the resumed ground state differs from the "
+                           "uninterrupted one")
+    if not traj_equal:
+        raise RuntimeError("the resumed trajectory differs from the "
+                           "uninterrupted one")
 
 
 # ---------------------------------------------------------------------------
@@ -2133,11 +2606,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--L", type=int, default=28)
     ap.add_argument("--L-flat", type=int, default=26, dest="L_flat")
+    ap.add_argument("--L-compact", type=int, default=28, dest="L_compact")
     ap.add_argument("--shards", type=int, default=4,
                     help="D of the --L k1-crossw, shard-main and "
                          "shard-evolve phases (>= 2)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
+    ap.add_argument("--ell-chunks", action="store_true", dest="ell_chunks")
     ap.add_argument("--kron-tiles", action="store_true", dest="kron_tiles")
     ap.add_argument("--k3-against", default=None, dest="k3_against",
                     metavar="DIR")
@@ -2146,6 +2621,8 @@ def main(argv=None):
         raise SystemExit("--L must be even, 16..32")
     if args.L_flat % 2 or not 16 <= args.L_flat <= 28:
         raise SystemExit("--L-flat must be even, 16..28")
+    if args.L_compact % 2 or not 16 <= args.L_compact <= 30:
+        raise SystemExit("--L-compact must be even, 16..30")
     if args.shards < 2:
         raise SystemExit("--shards must be at least 2 (one shard runs no "
                          "crossw instance)")
@@ -2197,6 +2674,14 @@ def main(argv=None):
     launches3 = phase_flat_main(args.L_flat, dev)
     if args.profile:
         phase_profile_flat(args.L_flat, dev)
+    phase_compact_oracle(dev)
+    ref = ((E0, S_main, kinfo, einfo) if args.L_compact == args.L
+           else kron_references(args.L_compact, dev))
+    ell = phase_compact_main(args.L_compact, dev, *ref)
+    if args.ell_chunks:
+        phase_ell_chunks(args.L_compact, dev)
+    typ = phase_flat_typicality(args.L_flat, dev)
+    phase_checkpoint(dev)
     f32, bf16 = torch.float32, torch.bfloat16
     for D in (2, 4):
         phase_k1_crossw(16, D, dev, f32)
@@ -2207,6 +2692,9 @@ def main(argv=None):
     cw_launches = phase_shard_main(args.L, args.shards, dev, E0, S_main)
     phase_shard_evolve(args.L, args.shards, dev, einfo)
     phase_dist1(args.L, dev)
+    print(json.dumps({"ell": dict(ell, typicality_s=typ["compact"][2],
+                                  typicality_applies=typ["compact"][1],
+                                  library="torch sparse CSR H @ psi")}))
     print(json.dumps({"kernels": [{
         "name": "K1 fused kron group apply",
         "route": "cuda",
@@ -2290,6 +2778,8 @@ def main(argv=None):
         "complex_tile_bits": k3["complex"]["tile_bits"],
         "designed_passes": k3["real"]["passes"],
         "complex_designed_passes": k3["complex"]["passes"],
+        "flat_typicality_launches": typ["embedded"][0],
+        "flat_typicality_s": typ["embedded"][2],
     }, {
         "name": "K1 crossw variant (sharded local block, windows)",
         "route": "cuda",

@@ -4,7 +4,11 @@ Host numpy constructors: sector states are uint32 values sorted ascending
 (colexicographic combinadic order), so the rank of a state is the closed
 form sum_t C(p_t, t) over its ascending set-bit positions; in the full basis
 a state's value is its index. The bit helpers act on numpy arrays or torch
-tensors of states. The vectorized rank/unrank wait for the compact layout.
+tensors of states. `rank_states` and `unrank_states` are the vectorized
+rank and unrank on torch tensors, on whatever device the tensor lies: the
+compact layout enumerates a sector on the card with them. States are int64
+tensors (bit 31 is set at L = 32, and the card has few uint32 kernels);
+indices into a sector fit int32 (C(32, 16) < 2^31).
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ from functools import lru_cache
 import numpy as np
 
 __all__ = ["binomial_table", "sector_dimension", "build_full_basis",
-           "build_sector_basis", "rank_state", "bit_at", "sz_value",
-           "flip_bits"]
+           "build_sector_basis", "rank_state", "rank_states", "unrank",
+           "unrank_states", "bit_at", "sz_value", "flip_bits"]
 
 MAX_L = 32  # uint32 states
 
@@ -79,6 +83,68 @@ def rank_state(state: int, L: int, nup: int) -> int:
             cnt += 1
             rank += math.comb(p, cnt)
     return rank
+
+
+def _binom_tensor(binom, device):
+    import torch
+
+    return torch.as_tensor(np.asarray(binom) if not isinstance(
+        binom, torch.Tensor) else binom, dtype=torch.int64, device=device)
+
+
+def rank_states(states, L: int, binom):
+    """Vectorized combinadic rank: the index of each state (an int64 tensor)
+    in the ascending sector basis, sum over set bits (ascending positions
+    p, running count t) of C(p, t). `binom` is binomial_table(L, nup)
+    (numpy or a tensor). Returns int64 on the states' device."""
+    import torch
+
+    b = _binom_tensor(binom, states.device)
+    kmax = b.shape[1] - 1
+    rank = torch.zeros_like(states, dtype=torch.int64)
+    cnt = torch.zeros_like(rank)
+    for p in range(L):
+        bit = (states >> p) & 1
+        cnt += bit
+        # C(p, cnt), added where the bit is set; the count clamped as in the
+        # JAX package (it never exceeds nup on states of the sector)
+        rank += bit * b[p][cnt.clamp(max=kmax)]
+    return rank
+
+
+def unrank_states(idx, L: int, nup: int, binom):
+    """Vectorized combinadic unrank: sector indices (a tensor) -> int64
+    states, L passes from the top bit down. unrank_states(arange(N)) is the
+    sector enumerated on the tensor's device."""
+    import torch
+
+    b = _binom_tensor(binom, idx.device)
+    kmax = b.shape[1] - 1
+    idx = idx.to(torch.int64, copy=True)
+    state = torch.zeros_like(idx)
+    k = torch.full_like(idx, nup)
+    for p in range(L - 1, -1, -1):
+        c = b[p][k.clamp(0, kmax)]
+        take = (k > 0) & (idx >= c)
+        state |= take.to(torch.int64) << p
+        idx -= torch.where(take, c, 0)
+        k -= take.to(torch.int64)
+    return state
+
+
+def unrank(idx: int, L: int, nup: int) -> int:
+    """Host inverse of rank_state: idx -> state bitstring (colex
+    combinadic)."""
+    state, k = 0, nup
+    for p in range(L - 1, -1, -1):
+        if k == 0:
+            break
+        c = math.comb(p, k)
+        if idx >= c:
+            state |= 1 << p
+            idx -= c
+            k -= 1
+    return state
 
 
 def bit_at(states, i: int):

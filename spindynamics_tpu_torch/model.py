@@ -1,14 +1,18 @@
 """Spin model specification (port of spindynamics_tpu/model.py).
 
 The model is a frozen dataclass of host numpy couplings plus layout
-metadata. Three layouts are ported: `sector_kron` (the lean build: the kron
-apply uses the layout's factored diagonal), `embedded` (one U(1) sector run
-inside the full 2^L space) and `full`. None of them stores an N-sized array:
-`basis_states()` is an arange made on demand and `diag(device)` is built
-lazily, in torch on the device that asks (only the plain blocked apply and
-the dense oracle read it; the fused matvec kernel K3 never does). The
-compact (ELL) and sector_blocked layouts are not ported. Site indices are
-0-based.
+metadata. Four layouts are ported: `sector_kron` (the lean build: the kron
+apply uses the layout's factored diagonal), `compact` (the U(1) sector in
+ascending order, the JAX package's `sector` mode, applied through the ELL
+neighbour table), `embedded` (one U(1) sector run inside the full 2^L
+space) and `full`. None of them stores an N-sized array: the basis states,
+the diagonal and the ELL table are built on demand on the device that asks
+(`basis_states(device)`, `diag(device)`, `sector_setup`), and the module
+that applies H holds what it needs (ops/apply.FlatHamiltonian). A compact
+build follows the JAX package's choice: on the card a torch build (L
+unrank passes, then one combinadic-rank pass per bond), on the CPU the host
+numpy build; the two give the same states and table, bit for bit. The
+sector_blocked layout is not ported. Site indices are 0-based.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-__all__ = ["SpinModel", "build_model", "nn_hopping", "long_range_hopping"]
+from . import basis as basis_mod
+
+__all__ = ["SpinModel", "build_model", "nn_hopping", "long_range_hopping",
+           "sector_setup"]
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _TORCH_DTYPES = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
@@ -47,9 +54,13 @@ class SpinModel:
     zz_sites: tuple
     kron_splits: tuple | None
     kron_pads: tuple | None
-    n_states_static: int        # padded kron length, or 2^L
+    n_states_static: int        # padded kron length, C(L, nup), or 2^L
     n_valid: int | None = None  # C(L, nup) when tile padding exists
-    mode: str = "sector_kron"   # 'sector_kron' | 'embedded' | 'full'
+    # 'sector_kron' | 'compact' | 'embedded' | 'full'
+    mode: str = "sector_kron"
+    # the ELL neighbour table (build_neighbor_table): a compact model, or a
+    # full one, with it is applied by the 'ell' backend
+    neighbor_table: bool = False
 
     @property
     def n_states(self) -> int:
@@ -60,23 +71,27 @@ class SpinModel:
         return self.hop_i.shape[0]
 
     def _flat_only(self, what):
-        if self.mode not in ("full", "embedded"):
-            raise ValueError(f"{what} needs a full or embedded model, not "
-                             f"mode={self.mode!r}")
+        if self.mode not in ("full", "embedded", "compact"):
+            raise ValueError(f"{what} needs a full, embedded or compact "
+                             f"model, not mode={self.mode!r}")
 
     def basis_states(self, device="cpu") -> torch.Tensor:
-        """The basis states of a full or embedded model: arange(2^L), int64,
-        made on demand (never stored)."""
+        """The basis states, int64, made on demand (never stored):
+        arange(2^L) for a full or embedded model; for a compact model the
+        ascending sector, unranked on the card or enumerated on the host."""
         self._flat_only("basis_states")
+        if self.mode == "compact":
+            return _sector_states(self.L, self.nup, torch.device(device))
         return torch.arange(self.n_states, dtype=torch.int64, device=device)
 
     def valid_mask(self, device="cpu"):
         """Boolean [n_states] mask of logical rows: popcount(index) == nup
         for 'embedded' (the U(1) sector is an exact invariant subspace of H,
         so zeroing the complement once at state preparation keeps a whole
-        computation in the sector); None for 'full'."""
+        computation in the sector); None for 'full' and 'compact', where
+        every row is logical."""
         self._flat_only("valid_mask")
-        if self.mode == "full":
+        if self.mode in ("full", "compact"):
             return None
         s = self.basis_states(device)
         cnt = torch.zeros_like(s)
@@ -87,12 +102,16 @@ class SpinModel:
     def diag(self, device="cpu", dtype: torch.dtype | None = None
              ) -> torch.Tensor:
         """The diagonal of H, sum_i h_i sz_i + sum_z Jz sz_i sz_j, as an
-        [n_states] tensor built in torch on `device` at every call: the
-        model stores no N-sized array, whoever needs the diagonal more than
-        once holds it (a blocked FlatHamiltonian keeps it as a buffer). The
-        plain blocked apply and the dense oracle read it, K3 does not."""
+        [n_states] tensor built on `device` at every call: the model stores
+        no N-sized array, whoever needs the diagonal more than once holds it
+        (a blocked or ell FlatHamiltonian keeps it as a buffer). The plain
+        blocked apply, the ell apply and the dense oracle read it, K3 does
+        not. A compact model's comes from sector_setup (the host build on
+        the CPU, the torch build elsewhere)."""
         self._flat_only("diag")
         dtype = self.dtype if dtype is None else dtype
+        if self.mode == "compact":
+            return sector_setup(self, device, dtype, want_table=False)[1]
         s = self.basis_states(device)
         acc = torch.zeros(self.n_states, dtype=dtype, device=device)
         for i in np.nonzero(self.field)[0]:
@@ -147,15 +166,21 @@ def build_model(
     dtype: torch.dtype = torch.float32,
     layout: str | None = None,
     kron_splits: tuple | None = None,
+    build_neighbor_table: bool | None = None,
 ) -> SpinModel:
     """Create a SpinModel: couplings + layout metadata, no N-sized arrays.
 
     layout=None resolves by nup: the full 2^L space for nup=None, else
-    'sector_kron' (the port's sector layout). layout='embedded' (with nup)
-    runs the sector inside the full 2^L space, on the flat-state path whose
-    H apply is K3 (ops/fused_matvec.py); layout='full' (or nup=None) is the
-    full space on the same path. 'compact' with nup set (the ELL table) and
-    'sector_blocked' are not ported."""
+    'sector_kron' (the port's sector layout; the JAX package's default is
+    'compact', a deliberate difference). layout='compact' with nup set is
+    the ascending U(1) sector (the JAX package's mode 'sector') applied
+    through the ELL neighbour table on any device and dtype;
+    layout='embedded' (with nup) runs the sector inside the full 2^L space,
+    on the flat-state path whose H apply is K3 (ops/fused_matvec.py);
+    layout='full' (or nup=None) is the full space on the same path.
+    `build_neighbor_table` is the JAX package's: on by default for a
+    compact sector, off for the full basis, where a table routes the apply
+    to 'ell' as in the JAX package. 'sector_blocked' is not ported."""
     if layout not in (None, "compact", "embedded", "full", "sector_blocked",
                       "sector_kron"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -165,10 +190,11 @@ def build_model(
         layout = "full" if nup is None else "sector_kron"
     if layout == "compact" and nup is None:
         layout = "full"  # the JAX package's nup=None: the full basis
-    if layout == "compact":
-        raise NotImplementedError(
-            "layout='compact' with nup set (the ELL neighbour table) is not "
-            "ported yet: ROADMAP Queue 1, item 1")
+    if build_neighbor_table is None:
+        build_neighbor_table = layout == "compact"
+    if build_neighbor_table and layout not in ("compact", "full"):
+        raise ValueError("build_neighbor_table applies to the compact and "
+                         f"full layouts, not {layout!r}")
     if layout == "sector_blocked":
         raise NotImplementedError(
             "layout='sector_blocked' is not ported: ROADMAP Queue 1, item 10 "
@@ -176,8 +202,12 @@ def build_model(
     if layout == "full" and nup is not None:
         raise ValueError("layout='full' takes nup=None; use "
                          "layout='embedded' for a sector in the full space")
+    if not 1 <= L <= basis_mod.MAX_L:
+        raise ValueError(f"L must be in [1, {basis_mod.MAX_L}], got {L}")
     if layout in ("sector_kron", "embedded") and nup is None:
         raise ValueError(f"layout={layout!r} requires nup")
+    if nup is not None and not 0 <= nup <= L:
+        raise ValueError(f"nup must be in [0, {L}], got {nup}")
     if dtype not in _NP_DTYPES:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, "
                          f"got {dtype}")
@@ -194,7 +224,7 @@ def build_model(
     if field.shape != (L,):
         raise ValueError(f"onsite_field must have shape ({L},)")
     hop_sites = tuple(zip(hop_i.tolist(), hop_j.tolist()))
-    if layout in ("embedded", "full"):
+    if layout in ("compact", "embedded", "full"):
         return SpinModel(
             L=L, nup=nup, field=field,
             hop_i=hop_i, hop_j=hop_j, hop_J=hop_J,
@@ -202,7 +232,9 @@ def build_model(
             hop_sites=hop_sites,
             zz_sites=tuple(zip(zz_i.tolist(), zz_j.tolist())),
             kron_splits=None, kron_pads=None,
-            n_states_static=1 << L, mode=layout)
+            n_states_static=(basis_mod.sector_dimension(L, nup)
+                             if layout == "compact" else 1 << L),
+            mode=layout, neighbor_table=bool(build_neighbor_table))
     from .ops.sector_kron import make_sector_kron_layout
 
     lay = make_sector_kron_layout(
@@ -218,3 +250,121 @@ def build_model(
         n_states_static=lay.n_states,
         n_valid=(lay.n_basis if lay.n_states != lay.n_basis else None),
     )
+
+
+# ---------------------------------------------------------------------------
+# the compact layout's builds: host numpy on the CPU, torch on the card
+# ---------------------------------------------------------------------------
+
+
+def _compute_diag(states, field, zz_i, zz_j, zz_J, dtype, chunk=1 << 22):
+    """diag[idx] = sum_i h_i sz(bit_i) + sum_z Jz sz_i sz_j: host numpy,
+    chunked over the states, accumulated in float64 and stored in `dtype`
+    (the JAX package's host build)."""
+    N = states.shape[0]
+    out = np.zeros(N, dtype=dtype)
+    for s0 in range(0, N, chunk):
+        s = states[s0:s0 + chunk]
+        acc = np.zeros(s.shape[0], dtype=np.float64)
+        for i in np.nonzero(field)[0]:
+            acc += field[i] * (((s >> i) & 1).astype(np.float64) - 0.5)
+        for i, j, Jz in zip(zz_i, zz_j, zz_J):
+            bi = ((s >> i) & 1).astype(np.float64) - 0.5
+            bj = ((s >> j) & 1).astype(np.float64) - 0.5
+            acc += float(Jz) * bi * bj
+        out[s0:s0 + chunk] = acc.astype(dtype)
+    return out
+
+
+def _build_ell_table(states, hop_i, hop_j, chunk=1 << 22):
+    """ELL neighbour table of an ascending basis (host numpy, int32
+    [N, n_bonds]): nbr[n, b] = rank(state_n XOR mask_b) where bits (i_b,
+    j_b) of state_n differ, else -1. The states are ascending, so the rank
+    is a searchsorted."""
+    N = states.shape[0]
+    nbr = np.full((N, hop_i.shape[0]), -1, dtype=np.int32)
+    for s0 in range(0, N, chunk):
+        s = states[s0:s0 + chunk]
+        for b, (i, j) in enumerate(zip(hop_i, hop_j)):
+            differ = (((s >> i) ^ (s >> j)) & 1).astype(bool)
+            r = np.searchsorted(states, s ^ ((1 << int(i)) | (1 << int(j))))
+            nbr[s0:s0 + chunk, b] = np.where(differ, r.astype(np.int32), -1)
+    return nbr
+
+
+def _unranked_sector(L, nup, device) -> torch.Tensor:
+    """The ascending sector as int64, unranked on `device` (L passes)."""
+    N = basis_mod.sector_dimension(L, nup)
+    return basis_mod.unrank_states(
+        torch.arange(N, dtype=torch.int64, device=device), L, nup,
+        basis_mod.binomial_table(L, nup))
+
+
+def _sector_states(L, nup, device: torch.device) -> torch.Tensor:
+    """The ascending sector as int64: enumerated on the host for the CPU,
+    unranked on `device` elsewhere."""
+    if device.type == "cpu":
+        return torch.from_numpy(
+            basis_mod.build_sector_basis(L, nup).astype(np.int64))
+    return _unranked_sector(L, nup, device)
+
+
+def _device_sector_setup(model: SpinModel, device, dtype, want_table):
+    """The torch build on `device`: the states (L unrank passes for a
+    compact model, an arange for a full one), the diagonal accumulated in
+    `dtype`, and, with `want_table`, the int32 ELL table [N, n_bonds], one
+    combinadic-rank pass (L steps) per bond. The JAX package's route for
+    large sectors on an accelerator, where the host would enumerate and
+    rank 4e7..6e8 states."""
+    device = torch.device(device)
+    L = model.L
+    if model.mode == "compact":
+        states = _unranked_sector(L, model.nup, device)
+    else:
+        states = torch.arange(model.n_states, dtype=torch.int64,
+                              device=device)
+    diag = torch.zeros(states.shape, dtype=dtype, device=device)
+    for i in np.nonzero(model.field)[0]:
+        diag += float(model.field[i]) * (((states >> int(i)) & 1).to(dtype)
+                                         - 0.5)
+    for i, j, J in zip(model.zz_i, model.zz_j, model.zz_J):
+        bi = ((states >> int(i)) & 1).to(dtype) - 0.5
+        bj = ((states >> int(j)) & 1).to(dtype) - 0.5
+        diag += float(J) * bi * bj
+    if not want_table:
+        return states, diag, None
+    nbr = torch.empty((model.n_states, model.n_bonds), dtype=torch.int32,
+                      device=device)
+    for b, (i, j) in enumerate(model.hop_sites):
+        differ = (((states >> i) ^ (states >> j)) & 1).bool()
+        flipped = states ^ ((1 << i) | (1 << j))
+        r = (basis_mod.rank_states(flipped, L, basis_mod.binomial_table(
+            L, model.nup)) if model.mode == "compact" else flipped)
+        nbr[:, b] = torch.where(differ, r, -1)
+    return states, diag, nbr
+
+
+def sector_setup(model: SpinModel, device, dtype: torch.dtype | None = None,
+                 want_table: bool = True):
+    """(states int64 [N], diag [N] in `dtype`, ELL table int32 [N, n_bonds]
+    or None) of a compact model, or of a full model with a neighbour table,
+    on `device`. The JAX package's choice of build: the torch build
+    (_device_sector_setup) on the card, the host numpy build
+    (build_sector_basis, _compute_diag, _build_ell_table) on the CPU; the
+    two give the same states and table, bit for bit."""
+    if model.mode not in ("compact", "full"):
+        raise ValueError("sector_setup builds the compact and full layouts, "
+                         f"not mode={model.mode!r}")
+    device = torch.device(device)
+    dtype = model.dtype if dtype is None else dtype
+    if device.type != "cpu":
+        return _device_sector_setup(model, device, dtype, want_table)
+    states = (basis_mod.build_sector_basis(model.L, model.nup)
+              if model.mode == "compact"
+              else basis_mod.build_full_basis(model.L)).astype(np.int64)
+    diag = _compute_diag(states, model.field, model.zz_i, model.zz_j,
+                         model.zz_J, _NP_DTYPES[dtype])
+    nbr = (torch.from_numpy(_build_ell_table(states, model.hop_i,
+                                             model.hop_j))
+           if want_table else None)
+    return torch.from_numpy(states), torch.from_numpy(diag), nbr

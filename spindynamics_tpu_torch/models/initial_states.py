@@ -1,7 +1,7 @@
 """Product-state constructors (port of
 spindynamics_tpu/models/initial_states.py). Host ints: bit i is site i
 (0-based). Every `*_state` constructor returns a flat state vector in the
-basis of a full or embedded model; `solvers/blockvec.bv_basis_state` turns
+basis of a full, embedded or compact model; `solvers/blockvec.bv_basis_state` turns
 a bitstring into a kron state. The state a solver is given decides where
 the solver runs, so the constructors follow the port's device rule
 (utils/device.py): `device=None` is the card, and raises without one;
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..basis import rank_state
 from ..model import SpinModel
 from ..utils.device import resolve_device
 
@@ -42,16 +43,19 @@ def polarized_bitstring(model: SpinModel, up: bool = True) -> int:
 
 
 def state_index(model: SpinModel, bitstring: int) -> int:
-    """Basis index of an encoded bitstring on a full or embedded model (the
-    bitstring itself; an embedded model checks its magnetization)."""
-    if model.mode not in ("full", "embedded"):
+    """Basis index of an encoded bitstring: the bitstring itself on a full
+    or embedded model (an embedded model checks its magnetization), its
+    combinadic rank on a compact model (after the same check)."""
+    if model.mode not in ("full", "embedded", "compact"):
         raise ValueError(
-            "state_index needs a full or embedded model; a sector_kron "
-            "state comes from solvers.blockvec.bv_basis_state")
-    if model.mode == "embedded" and bin(bitstring).count("1") != model.nup:
+            "state_index needs a full, embedded or compact model; a "
+            "sector_kron state comes from solvers.blockvec.bv_basis_state")
+    if model.mode != "full" and bin(bitstring).count("1") != model.nup:
         raise ValueError(
-            f"state {bitstring:#x} has wrong magnetization for embedded "
-            f"sector nup={model.nup}")
+            f"state {bitstring:#x} has wrong magnetization for "
+            f"{model.mode} sector nup={model.nup}")
+    if model.mode == "compact":
+        return rank_state(bitstring, model.L, model.nup)
     return int(bitstring)
 
 

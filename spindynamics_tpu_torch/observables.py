@@ -1,10 +1,12 @@
 """Diagonal observables of flat states from |psi|^2 (port of
-spindynamics_tpu/observables.py), for full and embedded models.
+spindynamics_tpu/observables.py), for full, embedded and compact models.
 
 Everything is one chunked pass over the probabilities: each chunk's
-[chunk, L] matrix of Sz eigenvalues is made from the chunk's indices and
-contracted against the probabilities, so a state of 2^26 amplitudes never
-makes L state-sized temporaries. Matrix products run in full float32.
+[chunk, L] matrix of Sz eigenvalues is made from the chunk's basis states
+(its indices on a full or embedded model, the model's states on a compact
+one) and contracted against the probabilities, so a state of 2^26
+amplitudes never makes L state-sized temporaries. Matrix products run in
+full float32.
 """
 
 from __future__ import annotations
@@ -30,17 +32,27 @@ def _probs(psi: torch.Tensor) -> torch.Tensor:
     return psi * psi
 
 
-def _sz_columns(s0: int, n: int, L: int, dtype, device) -> torch.Tensor:
-    """[n, L] matrix of Sz eigenvalues (+-1/2) of the states s0 .. s0+n-1."""
-    states = torch.arange(s0, s0 + n, device=device)
+def _sz_columns(s0: int, n: int, L: int, dtype, device, states=None
+                ) -> torch.Tensor:
+    """[n, L] matrix of Sz eigenvalues (+-1/2) of the basis states of rows
+    s0 .. s0+n-1: `states[s0:s0+n]`, or the row indices themselves when
+    `states` is None (a full or embedded model)."""
+    chunk = (torch.arange(s0, s0 + n, device=device) if states is None
+             else states[s0:s0 + n])
     site = torch.arange(L, device=device)
-    return ((states[:, None] >> site[None, :]) & 1).to(dtype) - 0.5
+    return ((chunk[:, None] >> site[None, :]) & 1).to(dtype) - 0.5
+
+
+def _row_states(model, device):
+    """The basis states the rows stand for where they are not the row
+    indices (a compact model), else None."""
+    return model.basis_states(device) if model.mode == "compact" else None
 
 
 def _flat_model(model, what):
-    if model.mode not in ("full", "embedded"):
-        raise ValueError(f"{what} needs a full or embedded model; kron "
-                         "states use observables_kron")
+    if model.mode not in ("full", "embedded", "compact"):
+        raise ValueError(f"{what} needs a full, embedded or compact model; "
+                         "kron states use observables_kron")
 
 
 def magnetization_per_site(psi: torch.Tensor, model: SpinModel,
@@ -49,10 +61,12 @@ def magnetization_per_site(psi: torch.Tensor, model: SpinModel,
     _flat_model(model, "magnetization_per_site")
     p = _probs(psi)
     L, N = model.L, model.n_states
+    states = _row_states(model, p.device)
     si = torch.zeros(L, dtype=p.dtype, device=p.device)
     for s0 in range(0, N, chunk):
         n = min(chunk, N - s0)
-        si += p[s0:s0 + n] @ _sz_columns(s0, n, L, p.dtype, p.device)
+        si += p[s0:s0 + n] @ _sz_columns(s0, n, L, p.dtype, p.device,
+                                         states)
     return si
 
 
@@ -61,11 +75,12 @@ def szsz_matrix(psi: torch.Tensor, model: SpinModel, chunk: int = 1 << 18):
     _flat_model(model, "szsz_matrix")
     p = _probs(psi)
     L, N = model.L, model.n_states
+    states = _row_states(model, p.device)
     szsz = torch.zeros((L, L), dtype=p.dtype, device=p.device)
     si = torch.zeros(L, dtype=p.dtype, device=p.device)
     for s0 in range(0, N, chunk):
         n = min(chunk, N - s0)
-        sz = _sz_columns(s0, n, L, p.dtype, p.device)
+        sz = _sz_columns(s0, n, L, p.dtype, p.device, states)
         wsz = sz * p[s0:s0 + n, None]
         szsz += wsz.T @ sz
         si += wsz.sum(dim=0)

@@ -136,7 +136,7 @@ def kpm_correlation_matrix(psi, omega, model: SpinModel, n: int = 300,
     site; the moments against every A site come from each iterate at once.
     For the diagonal opA_kind='z' the A-operator stack is never made:
     mu_i = Re(conj(psi) v) . sz_i, through a chunked [N, L] Sz product."""
-    from ..observables import _sz_columns
+    from ..observables import _row_states, _sz_columns
 
     if matvec is None:
         matvec = matvec_fn(model, backend, device=psi.device)
@@ -152,13 +152,15 @@ def kpm_correlation_matrix(psi, omega, model: SpinModel, n: int = 300,
 
     if opA_kind == "z":
         chunk = 1 << 18
+        states = _row_states(model, psi.device)
 
         def mu_vs_all_A(v):
             w = (psi.conj() * v).real
             out = torch.zeros(L, dtype=w.dtype, device=w.device)
             for s0 in range(0, N, chunk):
                 m = min(chunk, N - s0)
-                out += w[s0:s0 + m] @ _sz_columns(s0, m, L, w.dtype, w.device)
+                out += w[s0:s0 + m] @ _sz_columns(s0, m, L, w.dtype,
+                                                  w.device, states)
             return out
     else:
         ops_A = [apply_spin_operator(psi, model, i, opA_kind).to(cdtype)

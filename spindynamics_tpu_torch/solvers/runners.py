@@ -17,9 +17,16 @@ the apply is the block-distributed one (parallel/sharded_kron_scaling.py,
 K1 on each shard's local block), the start, psi0 and every recurrence
 vector stay in sharded form, every dot ends in the mesh's all-reduce, and
 the observables are summed per shard: no state is gathered anywhere.
+
+The flat runners (run_chebyshev, run_krylov, evolve_trajectory) take full,
+embedded and compact models; evolve_trajectory and
+lanczos_groundstate_checkpointed (flat or BlockVec states) save and resume
+through utils/checkpoint.py, bit for bit.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -33,7 +40,7 @@ from .blockvec import BlockVec, bv_random, bv_reduce
 
 __all__ = ["groundstate_kron", "kpm_sqw_kron", "lanczos_sqw_kron",
            "kpm_correlation_matrix_kron", "run_chebyshev", "run_krylov",
-           "evolve_trajectory"]
+           "evolve_trajectory", "lanczos_groundstate_checkpointed"]
 
 
 def _kron_matvec_for(lay, fused: bool, dtype, device, mesh=None):
@@ -537,23 +544,41 @@ def evolve_trajectory(model, psi0: torch.Tensor, dt: float, n_steps: int,
                       kry_m: int = 30, Ebounds=None,
                       backend: str | None = None, observe=None,
                       device=None,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      checkpoint_dir: str | None = None,
+                      checkpoint_every: int = 0, resume: bool = False):
     """Evolve a flat state n_steps of size dt, recording
     `observe(psi, model)` per step (default magnetization_per_site): the
     trajectory pattern of the reference's examples/example.jl:86-105, with
     the coefficients computed once. `device` defaults to psi0's. Chebyshev
     bounds come from estimate_energy_bounds (random start from `generator`)
     unless `Ebounds` is given. Returns (psi_final, obs [n_steps, ...]
-    numpy)."""
+    numpy).
+
+    Checkpoint/resume (the reference has none; in the JAX package these
+    arguments belong to evolve_trajectory_planes, which the port replaced by
+    this complex one): with `checkpoint_dir` the (state, observables, step)
+    are saved every `checkpoint_every` steps and at the end
+    (utils/checkpoint.py, meta keys step, dt, cheb_n, Ebounds); resume=True
+    continues from the saved step, with the saved Ebounds unless others are
+    given, so the resumed trajectory equals an uninterrupted one bit for
+    bit (the same coefficients, the same recurrence). Resuming a finished
+    run returns the saved state."""
     from ..observables import magnetization_per_site
     from ..ops.apply import matvec_fn
+    from ..utils.checkpoint import load_checkpoint, save_checkpoint
     from .chebyshev import chebyshev_coefficients, chebyshev_time_evolve
     from .krylov import krylov_time_evolve
     from .lanczos import estimate_energy_bounds
 
     if method not in ("chebyshev", "krylov"):
         raise ValueError(f"unknown method {method!r}")
+    if resume and not checkpoint_dir:
+        raise ValueError("resume=True requires checkpoint_dir")
     device = resolve_device(device, psi0)
+    saved = load_checkpoint(checkpoint_dir, device) if resume else None
+    if saved is not None and Ebounds is None and saved[1]["Ebounds"]:
+        Ebounds = tuple(saved[1]["Ebounds"])
     mv = matvec_fn(model, backend, device=device)
     psi = psi0.to(device=device, dtype=complex_dtype(psi0.dtype))
     if observe is None:
@@ -565,8 +590,22 @@ def evolve_trajectory(model, psi0: torch.Tensor, dt: float, n_steps: int,
                 mv, model.n_states, generator=generator,
                 mask=model.valid_mask(device), device=device)
         coeffs = chebyshev_coefficients(dt, Ebounds[0], Ebounds[1], cheb_n)
-    obs = []
-    for _ in range(n_steps):
+    obs, start = [], 0
+    if saved is not None:
+        psi, meta, extra = saved
+        start = int(meta["step"])
+        obs = list(extra["obs"]) if start else []
+
+    def save(step):
+        save_checkpoint(
+            checkpoint_dir, psi,
+            meta={"step": step, "dt": float(dt), "cheb_n": int(cheb_n),
+                  "Ebounds": (None if Ebounds is None else
+                              [float(Ebounds[0]), float(Ebounds[1])])},
+            extra_arrays={"obs": np.asarray(obs) if obs
+                          else np.zeros((0,), np.float32)})
+
+    for k in range(start, n_steps):
         if method == "chebyshev":
             psi = chebyshev_time_evolve(psi, mv, dt, Ebounds, cheb_n=cheb_n,
                                         coeffs=coeffs)
@@ -575,4 +614,74 @@ def evolve_trajectory(model, psi0: torch.Tensor, dt: float, n_steps: int,
         o = observe(psi, model)
         obs.append(o.cpu().numpy() if isinstance(o, torch.Tensor)
                    else np.asarray(o))
+        if checkpoint_dir and checkpoint_every and (
+                (k + 1) % checkpoint_every == 0):
+            save(k + 1)
+    if checkpoint_dir and start < n_steps:
+        save(n_steps)
     return psi, np.asarray(obs)
+
+
+def lanczos_groundstate_checkpointed(
+        matvec, N: int | None, checkpoint_dir: str, lanc_m: int = 40,
+        cycles: int = 6, tol: float = 1e-12, dtype=None,
+        generator: torch.Generator | None = None, mask=None,
+        target_residual: float | None = None, v0=None, save_every: int = 1,
+        device=None, mesh=None):
+    """Restarted two-pass ground state with per-cycle checkpoint/resume
+    (the reference recomputes everything on every run). After each
+    `save_every`-th restart cycle (and the last) the Ritz vector and (E0,
+    residual, cycle, lanc_m) are saved to `checkpoint_dir`
+    (utils/checkpoint.py; the cycle's Ritz values as the extra array
+    "evals"). An existing checkpoint there is resumed; each cycle is a
+    deterministic function of its start (lanczos.restart_cycle: every apply
+    and every dot writes each output once, with no atomics), so a cut and
+    resumed run reproduces the uninterrupted one bit for bit. A resumed run
+    whose saved residual is already below `target_residual` returns at
+    once; a run stops after the cycle that reaches it.
+
+    The state is a flat tensor or a BlockVec: the start is `v0` (copied)
+    or a random flat start from (N, dtype, generator, mask) on `device`
+    (default: v0's, else the generator's, else the card). A resumed state
+    is read onto `device` (and `mesh` for a sharded BlockVec). Returns (E0,
+    psi, info)."""
+    from ..utils.checkpoint import load_checkpoint, save_checkpoint
+    from .lanczos import _random_start, restart_cycle
+
+    device = resolve_device(device, v0 if v0 is not None else generator,
+                            mesh)
+    if dtype is None:
+        dtype = torch.float32 if v0 is None else v0.dtype
+    start, info, E0, psi = 0, {}, None, None
+    if os.path.exists(os.path.join(checkpoint_dir, "meta.json")):
+        psi, meta, _ = load_checkpoint(checkpoint_dir, device, mesh)
+        psi = psi.astype(dtype) if isinstance(psi, BlockVec) else psi.to(
+            dtype)
+        start = int(meta["cycle"])
+        E0 = meta.get("E0")
+        info = {"residual": meta.get("residual"), "resumed_at": start}
+        if (target_residual is not None and meta.get("residual") is not None
+                and meta["residual"] < target_residual):
+            return E0, psi, dict(info, cycles=start)
+    if psi is None:
+        if v0 is None:
+            psi = _random_start(N, dtype, generator, mask, device)
+        elif isinstance(v0, BlockVec):
+            # the cycle normalizes its start in place
+            psi = v0.map(lambda l: l.to(device=device, dtype=dtype,
+                                        copy=True))
+        else:
+            psi = v0.to(device=device, dtype=dtype, copy=True)
+    for c in range(start, cycles):
+        E0, psi, cinfo = restart_cycle(matvec, psi, lanc_m, tol=tol)
+        info = dict(cinfo, cycles=c + 1, resumed_at=start or None)
+        if (c + 1) % save_every == 0 or c + 1 == cycles:
+            save_checkpoint(
+                checkpoint_dir, psi,
+                meta={"cycle": c + 1, "E0": E0,
+                      "residual": cinfo["residual"], "lanc_m": lanc_m},
+                extra_arrays={"evals": np.asarray(cinfo["evals"])})
+        if (target_residual is not None
+                and cinfo["residual"] < target_residual):
+            break
+    return E0, psi, info

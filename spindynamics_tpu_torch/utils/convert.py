@@ -24,7 +24,9 @@ def model_from_numpy(L: int, nup, hop_sites, hop_J, field, zz_sites, zz_J,
     """Port model from a JAX SpinModel's couplings passed as numpy: bond
     site pairs, their J values, the onsite field and, for
     layout="sector_kron", the kron splits. layout is "sector_kron",
-    "embedded" or "full" (nup=None). dtype defaults to that of field."""
+    "compact" (the JAX package's mode "sector": the same ascending states,
+    so its states and parameters carry across unchanged), "embedded" or
+    "full" (nup=None). dtype defaults to that of field."""
     hop_J = np.asarray(hop_J)
     zz_J = np.asarray(zz_J)
     field = np.asarray(field)

@@ -106,14 +106,15 @@ def test_layout_rules():
         pt.build_model(30, nup=15, hopping=hop, layout="embedded")
     with pytest.raises(ValueError, match="requires nup"):
         pt.build_model(6, hopping=hop, layout="embedded")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1\\b"):
-        pt.build_model(6, nup=3, hopping=hop, layout="compact")
+    compact = pt.build_model(6, nup=3, hopping=hop, layout="compact")
+    assert compact.mode == "compact" and compact.n_states == 20
+    assert compact.neighbor_table and compact.valid_mask() is None
     with pytest.raises(NotImplementedError, match="Queue 1, item 10 "):
         pt.build_model(6, nup=3, hopping=hop, layout="sector_blocked")
     with pytest.raises(ValueError, match="unknown layout"):
         pt.build_model(6, nup=3, hopping=hop, layout="ell")
     kron = pt.build_model(6, nup=3, hopping=hop)
-    with pytest.raises(ValueError, match="full or embedded"):
+    with pytest.raises(ValueError, match="full, embedded or compact"):
         kron.valid_mask()
 
 
@@ -207,11 +208,14 @@ def test_apply_H_backends_and_rescaled():
     with pytest.raises(ValueError, match="unknown backend"):
         pt.apply_H(xt, mt, backend="pallas")
     with pytest.raises(ValueError, match="unknown backend"):
+        pt.matvec_fn(mt, backend="tensor", device="cpu")
+    # 'ell' is a backend now; an embedded model has no table for it
+    with pytest.raises(ValueError, match="no ELL neighbour table"):
         pt.matvec_fn(mt, backend="ell", device="cpu")
     kron = pt.xxz_chain(8, nup=4)
     with pytest.raises(ValueError, match="KronHamiltonian"):
         pt.apply_H(xt, kron)
-    with pytest.raises(ValueError, match="full or embedded"):
+    with pytest.raises(ValueError, match="full, embedded or compact"):
         pt.matvec_fn(kron, device="cpu")
 
 

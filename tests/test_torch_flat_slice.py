@@ -1,7 +1,7 @@
 """The flat-state slice end to end through both packages at small L: six
-of the embedded-layout cases of tests/test_embedded.py (the thermal state
-waits for the flat typicality module), the rule for the default device, and
-a user-style drive of the port alone."""
+of the embedded-layout cases of tests/test_embedded.py (the seventh, the
+thermal state, is in tests/test_torch_typicality.py), the rule for the
+default device, and a user-style drive of the port alone."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -185,6 +185,14 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: pt.evolve_trajectory(me, pt.domain_wall_state(me), 0.1, 1),
         lambda: bv_basis_state(lay, 0b1111),
         lambda: bv_random(lay, torch.Generator().manual_seed(0)),
+        # the compact layout, flat typicality, the checkpointed ground state
+        lambda: pt.matvec_fn(pt.xxz_chain(8, nup=4, layout="compact")),
+        lambda: pt.thermal_state(me, 1.0),
+        lambda: pt.typicality_correlation_function(
+            me, 1.0, pt.make_spin_operator(0, "z"),
+            pt.make_spin_operator(0, "z"), (0.0,)),
+        lambda: pt.lanczos_groundstate_checkpointed(
+            lambda v: v, me.n_states, "unused"),
     ]
     for f in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -220,7 +228,10 @@ def test_no_entry_point_defaults_to_cpu():
            pt.kpm_correlation_matrix_kron,
            # the sharded kron path: the mesh's device, else the card
            pt.ShardedKronHamiltonian.__init__, pt.LocalMesh.__init__,
-           pt.sharded_kron_scaling_bv_matvec_fn, pt.mesh_from_topology]
+           pt.sharded_kron_scaling_bv_matvec_fn, pt.mesh_from_topology,
+           # flat typicality and the checkpointed ground state
+           pt.thermal_state, pt.typicality_correlation_function,
+           pt.lanczos_groundstate_checkpointed]
     for f in fns:
         p = inspect.signature(f).parameters["device"]
         assert p.default is None, f

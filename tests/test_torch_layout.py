@@ -42,6 +42,8 @@ def test_port_imports_no_jax():
         "import spindynamics_tpu_torch.solvers.kpm\n"
         "import spindynamics_tpu_torch.solvers.krylov\n"
         "import spindynamics_tpu_torch.solvers.lanczos_sqw\n"
+        "import spindynamics_tpu_torch.solvers.typicality\n"
+        "import spindynamics_tpu_torch.utils.checkpoint\n"
         "import spindynamics_tpu_torch.parallel.mesh\n"
         "import spindynamics_tpu_torch.parallel.distributed\n"
         "import spindynamics_tpu_torch.parallel.sharded_kron_scaling\n"
@@ -164,8 +166,10 @@ def test_blocks_roundtrip():
 
 
 def test_other_layouts_not_ported():
+    # compact is ported (tests/test_torch_compact.py); sector_blocked is not
+    assert pt.build_model(8, nup=4, layout="compact").mode == "compact"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_model(8, nup=4, layout="compact")
+        pt.build_model(8, nup=4, layout="sector_blocked")
 
 
 @pytest.mark.parametrize("L,nup", [(8, 3), (12, 6), (16, 8)])
