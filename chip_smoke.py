@@ -128,6 +128,28 @@ with no result line):
   dist-1   ProcessMesh over an NCCL group of world size 1: one --L apply and
            an L=16 ground state equal to LocalMesh(1)'s (skipped, and said
            so, where torch.distributed has no NCCL)
+  sector-blocked  --L Heisenberg chain on the sector_blocked layout,
+           float32: the card's torch build of its states and diagonal equal
+           to the host build bit for bit; the apply against ell on the
+           compact model of the same couplings (1e-5 of max|y|, float32 and
+           complex64), timed in turns with ell and a torch sparse CSR
+           product beside its bytes bound, and the device's busy time in
+           one apply (torch.profiler); a restarted ground state within
+           1e-4 of main's E0 (plain torch: no kernel)
+  cli      the port's command line, each command in its own process
+           (python -m spindynamics_tpu_torch.cli through runpy, so that the
+           process reports its kernels' launch counts and peak memory at
+           exit): groundstate and sqw --method kpm --kpm-m 10 at --L (auto:
+           sector_kron, K1; E0 within 1e-4 of main's, S finite and >= 0),
+           evolve at --L (K2; 5 steps of the evolve phase's trajectory,
+           <Sz_i> within 1e-5 of it), groundstate --layout embedded at
+           --L-flat (K3; E0 within 1e-4 of flat-main's), typicality and sqw
+           --method lanczos at L=20 (auto: embedded, K3), groundstate
+           --twopass --lanc-m 40 at L=24 with and without --mesh 4 (K1's
+           crossw variant; E0 within 1e-4), groundstate --layout
+           sector_blocked at --L (E0 within 1e-4
+           of main's); a non-zero exit, or a kernel of the command's path
+           launched no time, fails the phase
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^15
@@ -136,9 +158,12 @@ with no result line):
            chunks of 2^16..2^22, each equal to the default chunk's result
   kron-tiles (--kron-tiles) K1's and K2's time at --L with 32- and 64-row
            output tiles beside the kernel's rule; results identical
-Then one JSON line with the ell apply's numbers (plain torch, not a
-kernel: its times, bounds, CSR time and apply counts per phase), one with
-the kernel records, and last the device line.
+Then one JSON line with the cli commands' records (wall and solve
+seconds, peak memory, launches per kernel), one with the sector_blocked
+apply's numbers and one with the ell apply's (plain torch, not kernels:
+their times, bounds, CSR time and apply counts), one with the kernel
+records (`cli_launches`: the kernel's launches in the cli phase), and last
+the device line.
 
 The bounds in the kernel records are the larger of bytes over 3.35 TB/s
 (each input read once, each output written once) and the operations of the
@@ -148,9 +173,11 @@ over 67 TFLOP/s (the H100 SXM data sheet). `fma_route_bound_ms` is the
 bound with every product on the FMAs; `fma_ms` the FMA route's time on the
 same launches, measured beside the tensor-core route (`tc_ms_beside_fma`).
 
-The sharded and compact phases come on top of the earlier ones, none of
-which is cut in depth for them: with the defaults the whole script takes
-about 6 minutes on an H100 (its limit is 20).
+The sharded, compact, sector-blocked and cli phases come on top of the
+earlier ones, none of which is cut in depth for them (the cli phase cuts
+its own: --kpm-m 10, and --twopass --lanc-m 40 for the L=24 pair): with
+the defaults the whole script takes about 10 minutes on an H100 80GB HBM3
+(569-621 s measured; its limit is 20).
 
 Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--L-compact 28]
                              [--shards 4] [--profile] [--k3-tiles]
@@ -1478,7 +1505,7 @@ def phase_flat_oracle(dev):
 def phase_flat_main(L, dev):
     """The flat path at L: ground state, Lanczos and KPM S(q, omega),
     domain-wall trajectory, all through K3; then the same model through the
-    kron layout (K1, K2). Returns K3's launch count."""
+    kron layout (K1, K2). Returns (K3's launch count, E0)."""
     import spindynamics_tpu_torch as pt
     from spindynamics_tpu_torch.ops import fused_matvec as fm
 
@@ -1624,7 +1651,7 @@ def phase_flat_main(L, dev):
         raise RuntimeError(f"flat and kron E0 differ by {dE}")
     if not dS <= 1e-5:
         raise RuntimeError(f"flat and kron <Sz_i> differ by {dS}")
-    return launches
+    return launches, E0
 
 
 # ---------------------------------------------------------------------------
@@ -1633,17 +1660,19 @@ def phase_flat_main(L, dev):
 
 
 class _EllApplies:
-    """Counts the ell applies of every FlatHamiltonian while active (a
-    global forward hook): the applies of a phase, the runners' own modules
-    included. The ell apply is plain torch, not a kernel: these counts are
-    the phase's apply counts, not kernel launches."""
+    """Counts the applies of every FlatHamiltonian of one backend (default
+    'ell') while active (a global forward hook): the applies of a phase,
+    the runners' own modules included. The ell and sector_blocked applies
+    are plain torch, not kernels: these counts are the phase's apply
+    counts, not kernel launches."""
 
-    def __init__(self):
+    def __init__(self, backend="ell"):
         self.n = 0
+        self.backend = backend
         self._h = None
 
     def _hook(self, mod, args, out):
-        if getattr(mod, "backend", None) == "ell":
+        if getattr(mod, "backend", None) == self.backend:
             self.n += 1
 
     def __enter__(self):
@@ -2483,6 +2512,267 @@ def phase_dist1(L, dev):
         dist.destroy_process_group()
 
 
+# Runs `python -m spindynamics_tpu_torch.cli ARGS` (runpy's module-as-main,
+# what -m does) and reports on stderr, at exit, the kernels' launch counts
+# of that process and its peak device memory.
+_CLI_RUNNER = """
+import atexit, json, runpy, sys
+
+def _report():
+    import torch
+    from spindynamics_tpu_torch.ops import cheb_term as ct
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+    from spindynamics_tpu_torch.ops import kron_group as kg
+    f32 = torch.float32
+    print("CLI-REPORT " + json.dumps({
+        "K1": kg.kernel_launch_count(f32),
+        "K1 crossw": kg.kernel_launch_count(f32, crossw=True),
+        "K2": ct.kernel_launch_count(f32), "K3": fm.kernel_launch_count(),
+        "peak": (torch.cuda.max_memory_allocated()
+                 if torch.cuda.is_available() else 0)}), file=sys.stderr)
+
+atexit.register(_report)
+sys.argv = ["spindynamics_tpu_torch.cli"] + sys.argv[1:]
+runpy.run_module("spindynamics_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _run_cli(args, timeout=600):
+    """One command of the port's CLI in its own process, from the root of
+    this checkout (where the kernels are already built): (the JSON line,
+    the launch counts and peak, wall seconds). A non-zero exit raises."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _CLI_RUNNER, *args],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"cli {' '.join(args)} exited {res.returncode}:"
+                           f"\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    rep = [ln for ln in res.stderr.splitlines()
+           if ln.startswith("CLI-REPORT ")]
+    return info, json.loads(rep[-1][len("CLI-REPORT "):]), wall
+
+
+def phase_cli(L, L_flat, dev, refs):
+    """The port's command line, every command in its own process
+    through the kernels already built, at full width: sector_kron at L
+    (auto: K1 ground state and KPM S(q, omega), K2 trajectory), embedded
+    at L_flat and L=20 (K3), sector_kron with --mesh 4 at L=24 (K1's
+    crossw variant) and sector_blocked at L. `refs`: E0 of the main and
+    flat-main phases, the evolve phase's <Sz_i>. Each command is held by
+    its exit code, its JSON line, its .npz and the launches of the kernels
+    its path runs. Returns the commands' records."""
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()  # the commands' memory is their own
+    Ls, Lf = str(L), str(L_flat)
+    cmds = [
+        ("groundstate", ["groundstate", "--L", Ls, "--sz0", "--lanc-m",
+                         "40", "--cycles", "6"], "K1"),
+        ("sqw-kpm", ["sqw", "--method", "kpm", "--L", Ls, "--sz0",
+                     "--kpm-m", "10", "--lanc-m", "40", "--out",
+                     str(out_dir / "sqw.npz")], "K1"),
+        ("evolve", ["evolve", "--L", Ls, "--sz0", "--jz", "0.5", "--t-max",
+                    "0.5", "--steps", "5", "--cheb-n", "40", "--out",
+                    str(out_dir / "evolve.npz")], "K2"),
+        ("groundstate-embedded", ["groundstate", "--L", Lf, "--sz0", "--jz",
+                                  "0.5", "--layout", "embedded"], "K3"),
+        ("typicality", ["typicality", "--L", "20", "--sz0", "--beta", "1",
+                        "--n-t", "3", "--out",
+                        str(out_dir / "typicality.npz")], "K3"),
+        ("groundstate-mesh", ["groundstate", "--L", "24", "--sz0",
+                              "--layout", "sector_kron", "--twopass",
+                              "--lanc-m", "40", "--mesh", "4"], "K1 crossw"),
+        ("groundstate-nomesh", ["groundstate", "--L", "24", "--sz0",
+                                "--layout", "sector_kron", "--twopass",
+                                "--lanc-m", "40"], "K1"),
+        ("sqw-lanczos", ["sqw", "--method", "lanczos", "--L", "20", "--sz0",
+                         "--lanc-m", "40", "--out",
+                         str(out_dir / "sqw20.npz")], "K3"),
+        ("groundstate-sector_blocked", ["groundstate", "--L", Ls, "--sz0",
+                                        "--layout", "sector_blocked"], None),
+    ]
+    recs, infos = [], {}
+    for name, args, kernel in cmds:
+        info, rep, wall = _run_cli(args)
+        infos[name] = info
+        n = rep[kernel] if kernel else 0
+        print(f"cli {name}: {' '.join(args[:-2] if '--out' in args else args)}"
+              f" | mode {info['mode']} | wall {wall:.2f} s (build "
+              f"{info['build_s']} s, solve {info.get('solve_s')} s) | peak "
+              f"{rep['peak'] / 2**30:.2f} GiB | launches K1 {rep['K1']} "
+              f"(crossw {rep['K1 crossw']}), K2 {rep['K2']}, K3 {rep['K3']}")
+        recs.append({"name": name, "args": args, "wall_s": wall,
+                     "solve_s": info.get("solve_s"),
+                     "build_s": info["build_s"], "peak_bytes": rep["peak"],
+                     "launches": {k: rep[k] for k in ("K1", "K1 crossw",
+                                                      "K2", "K3")}})
+        if kernel and not n > 0:
+            raise RuntimeError(f"cli {name} launched {kernel} no time")
+        if name == "groundstate-sector_blocked" and any(
+                rep[k] for k in ("K1", "K2", "K3")):
+            raise RuntimeError("the sector_blocked command launched a kernel")
+    E0_main, E0_flat, obs_evolve = refs
+    want_mode = {"groundstate": "sector_kron", "sqw-kpm": "sector_kron",
+                 "evolve": "sector_kron", "groundstate-embedded": "embedded",
+                 "typicality": "embedded", "sqw-lanczos": "embedded",
+                 "groundstate-sector_blocked": "sector_blocked"}
+    for name, mode in want_mode.items():
+        if infos[name]["mode"] != mode:
+            raise RuntimeError(f"cli {name} ran mode {infos[name]['mode']}")
+    checks = []
+
+    def check(what, ok):
+        checks.append(f"{what} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            print("cli: " + " | ".join(checks))
+            raise RuntimeError(f"cli: {what}")
+
+    for name, ref in (("groundstate", E0_main),
+                      ("groundstate-embedded", E0_flat),
+                      ("groundstate-sector_blocked", E0_main),
+                      ("groundstate-mesh",
+                       infos["groundstate-nomesh"]["E0"])):
+        d = abs(infos[name]["E0"] - ref)
+        check(f"{name} E0 {infos[name]['E0']:.6f} against {ref:.6f} "
+              f"|d| {d:.2e} <= 1e-4", d <= 1e-4)
+    for name, path, shape in (("sqw-kpm", "sqw.npz", (L, 200)),
+                              ("sqw-lanczos", "sqw20.npz", (20, 200))):
+        S = np.load(out_dir / path)["S"]
+        smax = float(np.abs(S).max())
+        check(f"{name} S {S.shape} finite, >= -1e-6 max", S.shape == shape
+              and bool(np.all(np.isfinite(S))) and smax > 0
+              and float(S.min()) >= -1e-6 * smax)
+    ev = np.load(out_dir / "evolve.npz")
+    d = float(np.abs(ev["magnetization"] - obs_evolve).max())
+    nrm = infos["evolve"]["final_norm"]
+    check(f"evolve <Sz_i> against the evolve phase |d| {d:.2e} <= 1e-5, "
+          f"norm {nrm:.7f}, psi {ev['psi'].shape}",
+          d <= 1e-5 and abs(nrm - 1) <= 1e-4 and ev["psi"].shape[0] == 2)
+    C = np.load(out_dir / "typicality.npz")["C"]
+    check(f"typicality C {np.round(C, 5).tolist()} finite, C(0) = 1/4 "
+          f"(Sz_0^2) to 1e-5", bool(np.all(np.isfinite(C)))
+          and abs(C[0] - 0.25) <= 1e-5)
+    print("cli: " + " | ".join(checks))
+    for f in out_dir.iterdir():
+        f.unlink()
+    out_dir.rmdir()
+    return recs
+
+
+def _device_busy(fn):
+    """(ms of device activity, device events) of one call of fn(), from
+    torch.profiler's CUDA events: what the card did of the call's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
+def phase_sector_blocked(L, dev, E0_main):
+    """The sector_blocked layout at L: the Heisenberg chain of `main`,
+    float32. The torch build on the card against the host build (states
+    and diagonal bit for bit), the apply against `ell` on the compact model
+    of the same couplings (through the permutation of the two orders) on
+    random float32 and complex64 states (1e-5 of max|y|), its time in turns
+    with `ell` and a torch sparse CSR product beside its bytes bound, and a
+    restarted ground state held to main's kron E0 (1e-4). Returns its
+    record (plain torch: no kernel)."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.model import sector_setup
+
+    m = pt.heisenberg_chain(L, nup=L // 2, layout="sector_blocked")
+    N = m.n_states
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (s_d, d_d, _), t_dev = _sync_time(lambda: sector_setup(m, dev))
+    t0 = time.perf_counter()
+    s_h, d_h, _ = sector_setup(m, "cpu")
+    t_host = time.perf_counter() - t0
+    same = torch.equal(s_d.cpu(), s_h) and torch.equal(d_d.cpu(), d_h)
+    del s_d, d_d, s_h, d_h
+    if not same:
+        raise RuntimeError("sector_blocked: the card's build differs from "
+                           "the host build")
+    mv, t_build = _sync_time(lambda: pt.matvec_fn(m, device=dev))
+    table_bytes = sum(b.numel() * b.element_size()
+                      for n, b in mv.named_buffers() if n.startswith("sb_"))
+    rec = {"L": L, "N": N, "Ll": m.lo_bits, "groups": len(mv.layout.groups),
+           "hi_bonds": len(mv.layout.hi_tables[mv.layout.groups[0][0]]),
+           "torch_build_s": t_dev, "host_build_s": t_host,
+           "module_build_s": t_build, "table_bytes": table_bytes}
+    mc = pt.heisenberg_chain(L, nup=L // 2, layout="compact")
+    ell = pt.matvec_fn(mc, device=dev)
+    perm = torch.searchsorted(ell.states, mv.states)  # blocked -> ascending
+    H = csr_from_ell(ell)
+    for cplx in (False, True):
+        x = _flat_state(m, dev, cplx, L)
+        xc = torch.empty_like(x)
+        xc[perm] = x
+        y, yc = mv(x), ell(xc)
+        err = float((y - yc[perm]).abs().max()) / float(yc.abs().max())
+        tag = "complex" if cplx else "real"
+        if not err <= 1e-5:
+            raise RuntimeError(f"sector_blocked {tag} apply off ell by {err}")
+        sb_ms, ell_ms, csr_ms = [], [], []
+        for _ in range(2):  # in turns
+            sb_ms.append(_event_ms(lambda: mv(x), reps=10))
+            ell_ms.append(_event_ms(lambda: ell(xc), reps=10))
+            if not cplx:
+                csr_ms.append(_event_ms(lambda: H @ xc, reps=10))
+        comp = 8 if cplx else 4
+        nb = table_bytes + N * (2 * comp + 4)  # state, result, diagonal
+        bound = _bound(nb, 0.0)
+        busy, n_ev = _device_busy(lambda: mv(x))
+        rec[tag] = {"ms": sb_ms, "ell_ms": ell_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "max_rel_err": err,
+                    "device_busy_ms": busy, "device_events": n_ev}
+        if csr_ms:
+            rec["csr_ms"] = csr_ms
+        print(f"sector-blocked L={L} apply {tag}: {sb_ms} ms (medians of "
+              f"10, two turns) | ell {ell_ms} ms"
+              + (f" | CSR H @ psi {csr_ms} ms" if csr_ms else "")
+              + f" | bound {bound[0]:.3f} ms by {bound[1]} ({nb / 1e9:.3f} "
+              f"GB) | profiled apply: device busy {busy:.3f} ms in {n_ev} "
+              f"device events | against ell max|d|/max|y| {err:.2e} "
+              f"(<= 1e-5)")
+        del x, xc, y, yc
+    del H, ell, perm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _EllApplies("sector_blocked") as n_gs:
+        (E0, psi, info), t_gs = _sync_time(
+            lambda: pt.lanczos_groundstate_restarted(
+                mv, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
+                generator=torch.Generator(device=dev).manual_seed(0)))
+    peak = torch.cuda.max_memory_allocated()
+    del psi
+    dE = abs(E0 - E0_main)
+    rec.update(E0=E0, ground_state_s=t_gs, applies=n_gs.n, peak_bytes=peak)
+    print(f"sector-blocked L={L}: Ll {m.lo_bits}, {rec['groups']} groups, "
+          f"{rec['hi_bonds']} hi bonds per group, tables "
+          f"{table_bytes / 2**20:.1f} MiB | builds: card {t_dev:.2f} s, "
+          f"host {t_host:.2f} s (equal bit for bit), module {t_build:.2f} s"
+          f" | ground state E0 {E0:.6f} (kron {E0_main:.6f}, |d| "
+          f"{dE:.2e} <= 1e-4) residual {info['residual']:.3e} cycles "
+          f"{info['cycles']} {t_gs:.2f} s ({n_gs.n} applies) | peak "
+          f"{peak / 2**30:.2f} GiB")
+    if not (info["residual"] <= 1e-3 and dE <= 1e-4):
+        raise RuntimeError(f"sector_blocked E0 {E0} off kron {E0_main}")
+    return rec
+
+
 def phase_oracle(dev):
     import spindynamics_tpu_torch as pt
 
@@ -2671,7 +2961,7 @@ def main(argv=None):
     if args.k3_tiles:
         phase_k3_tiles(args.L_flat, dev)
     phase_flat_oracle(dev)
-    launches3 = phase_flat_main(args.L_flat, dev)
+    launches3, E0_flat = phase_flat_main(args.L_flat, dev)
     if args.profile:
         phase_profile_flat(args.L_flat, dev)
     phase_compact_oracle(dev)
@@ -2692,6 +2982,14 @@ def main(argv=None):
     cw_launches = phase_shard_main(args.L, args.shards, dev, E0, S_main)
     phase_shard_evolve(args.L, args.shards, dev, einfo)
     phase_dist1(args.L, dev)
+    sb = phase_sector_blocked(args.L, dev, E0)
+    cli = phase_cli(args.L, args.L_flat, dev,
+                    (E0, E0_flat, einfo["obs"]))
+    print(json.dumps({"cli": cli}))
+    cli_n = {k: sum(r["launches"][k] for r in cli)
+             for k in ("K1", "K1 crossw", "K2", "K3")}
+    print(json.dumps({"sector_blocked": dict(
+        sb, library="torch sparse CSR H @ psi of the compact model")}))
     print(json.dumps({"ell": dict(ell, typicality_s=typ["compact"][2],
                                   typicality_applies=typ["compact"][1],
                                   library="torch sparse CSR H @ psi")}))
@@ -2712,6 +3010,7 @@ def main(argv=None):
         "fma_ms": fma["k1"][0],
         "tc_ms_beside_fma": fma["k1"][1],
         "xxz_jxy03_max_abs_err": fma["xxz03"][0],
+        "cli_launches": cli_n["K1"],
     }, {
         "name": "K2 fused Chebyshev term",
         "route": "cuda",
@@ -2728,6 +3027,7 @@ def main(argv=None):
         "fma_route_bound_ms": fbound2[0],
         "fma_ms": fma["k2"][0],
         "tc_ms_beside_fma": fma["k2"][1],
+        "cli_launches": cli_n["K2"],
     }, {
         "name": "K1 fused kron group apply (bf16 state)",
         "route": "cuda",
@@ -2780,6 +3080,7 @@ def main(argv=None):
         "complex_designed_passes": k3["complex"]["passes"],
         "flat_typicality_launches": typ["embedded"][0],
         "flat_typicality_s": typ["embedded"][2],
+        "cli_launches": cli_n["K3"],
     }, {
         "name": "K1 crossw variant (sharded local block, windows)",
         "route": "cuda",
@@ -2802,6 +3103,7 @@ def main(argv=None):
         "bf16_graph_replay_ms": cwb[5],
         "fma_route_bound_ms": cw[6][0],
         "bf16_fma_route_bound_ms": cwb[6][0],
+        "cli_launches": cli_n["K1 crossw"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

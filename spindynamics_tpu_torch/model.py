@@ -1,18 +1,21 @@
 """Spin model specification (port of spindynamics_tpu/model.py).
 
 The model is a frozen dataclass of host numpy couplings plus layout
-metadata. Four layouts are ported: `sector_kron` (the lean build: the kron
+metadata. Five layouts are ported: `sector_kron` (the lean build: the kron
 apply uses the layout's factored diagonal), `compact` (the U(1) sector in
 ascending order, the JAX package's `sector` mode, applied through the ELL
-neighbour table), `embedded` (one U(1) sector run inside the full 2^L
-space) and `full`. None of them stores an N-sized array: the basis states,
-the diagonal and the ELL table are built on demand on the device that asks
-(`basis_states(device)`, `diag(device)`, `sector_setup`), and the module
-that applies H holds what it needs (ops/apply.FlatHamiltonian). A compact
-build follows the JAX package's choice: on the card a torch build (L
-unrank passes, then one combinadic-rank pass per bond), on the CPU the host
-numpy build; the two give the same states and table, bit for bit. The
-sector_blocked layout is not ported. Site indices are 0-based.
+neighbour table), `sector_blocked` (the U(1) sector in (k_hi, rank_hi,
+rank_lo) order, the JAX package's `sector` mode with `lo_bits`, applied
+by ops/sector_blocked.py), `embedded` (one U(1) sector run inside the full
+2^L space) and `full`. None of them stores an N-sized array: the basis
+states, the diagonal and the ELL table are built on demand on the device
+that asks (`basis_states(device)`, `diag(device)`, `sector_setup`), and the
+module that applies H holds what it needs (ops/apply.FlatHamiltonian). A
+compact or sector_blocked build follows the JAX package's choice: on the
+card a torch build (compact: L unrank passes, then one combinadic-rank pass
+per bond; sector_blocked: the per-group outer products of the hi and lo
+enumerations), on the CPU the host numpy build; the two give the same
+states, table and diagonal, bit for bit. Site indices are 0-based.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ __all__ = ["SpinModel", "build_model", "nn_hopping", "long_range_hopping",
            "sector_setup"]
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+# the modes whose states are flat vectors, and those of them whose rows
+# stand for sector states other than their indices
+FLAT_MODES = ("full", "embedded", "compact", "sector_blocked")
+SECTOR_MODES = ("compact", "sector_blocked")
 _TORCH_DTYPES = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
 
 
@@ -56,11 +63,13 @@ class SpinModel:
     kron_pads: tuple | None
     n_states_static: int        # padded kron length, C(L, nup), or 2^L
     n_valid: int | None = None  # C(L, nup) when tile padding exists
-    # 'sector_kron' | 'compact' | 'embedded' | 'full'
+    # 'sector_kron' | 'compact' | 'sector_blocked' | 'embedded' | 'full'
     mode: str = "sector_kron"
     # the ELL neighbour table (build_neighbor_table): a compact model, or a
     # full one, with it is applied by the 'ell' backend
     neighbor_table: bool = False
+    # the lo part's bit count Ll of a sector_blocked model
+    lo_bits: int | None = None
 
     @property
     def n_states(self) -> int:
@@ -71,27 +80,36 @@ class SpinModel:
         return self.hop_i.shape[0]
 
     def _flat_only(self, what):
-        if self.mode not in ("full", "embedded", "compact"):
-            raise ValueError(f"{what} needs a full, embedded or compact "
-                             f"model, not mode={self.mode!r}")
+        if self.mode not in FLAT_MODES:
+            raise ValueError(f"{what} needs a full, embedded, compact or "
+                             f"sector_blocked model, not mode={self.mode!r}")
+
+    @property
+    def stores_states(self) -> bool:
+        """True where the rows stand for basis states other than their
+        indices (compact, sector_blocked)."""
+        return self.mode in SECTOR_MODES
 
     def basis_states(self, device="cpu") -> torch.Tensor:
         """The basis states, int64, made on demand (never stored):
         arange(2^L) for a full or embedded model; for a compact model the
-        ascending sector, unranked on the card or enumerated on the host."""
+        ascending sector, unranked on the card or enumerated on the host;
+        for a sector_blocked model the blocked order (sector_setup)."""
         self._flat_only("basis_states")
         if self.mode == "compact":
             return _sector_states(self.L, self.nup, torch.device(device))
+        if self.mode == "sector_blocked":
+            return sector_setup(self, device, want_table=False)[0]
         return torch.arange(self.n_states, dtype=torch.int64, device=device)
 
     def valid_mask(self, device="cpu"):
         """Boolean [n_states] mask of logical rows: popcount(index) == nup
         for 'embedded' (the U(1) sector is an exact invariant subspace of H,
         so zeroing the complement once at state preparation keeps a whole
-        computation in the sector); None for 'full' and 'compact', where
-        every row is logical."""
+        computation in the sector); None for 'full', 'compact' and
+        'sector_blocked', where every row is logical."""
         self._flat_only("valid_mask")
-        if self.mode in ("full", "compact"):
+        if self.mode != "embedded":
             return None
         s = self.basis_states(device)
         cnt = torch.zeros_like(s)
@@ -104,13 +122,14 @@ class SpinModel:
         """The diagonal of H, sum_i h_i sz_i + sum_z Jz sz_i sz_j, as an
         [n_states] tensor built on `device` at every call: the model stores
         no N-sized array, whoever needs the diagonal more than once holds it
-        (a blocked or ell FlatHamiltonian keeps it as a buffer). The plain
-        blocked apply, the ell apply and the dense oracle read it, K3 does
-        not. A compact model's comes from sector_setup (the host build on
+        (a blocked, ell or sector_blocked FlatHamiltonian keeps it as a
+        buffer). The plain blocked apply, the ell and sector_blocked applies
+        and the dense oracle read it, K3 does not. A compact or
+        sector_blocked model's comes from sector_setup (the host build on
         the CPU, the torch build elsewhere)."""
         self._flat_only("diag")
         dtype = self.dtype if dtype is None else dtype
-        if self.mode == "compact":
+        if self.stores_states:
             return sector_setup(self, device, dtype, want_table=False)[1]
         s = self.basis_states(device)
         acc = torch.zeros(self.n_states, dtype=dtype, device=device)
@@ -180,7 +199,12 @@ def build_model(
     layout='full' (or nup=None) is the full space on the same path.
     `build_neighbor_table` is the JAX package's: on by default for a
     compact sector, off for the full basis, where a table routes the apply
-    to 'ell' as in the JAX package. 'sector_blocked' is not ported."""
+    to 'ell' as in the JAX package. layout='sector_blocked' (with nup) is
+    the sector in (k_hi, rank_hi, rank_lo) order with lo_bits Ll from the
+    JAX package's rule (ops/sector_blocked.default_lo_bits), applied by
+    ops/sector_blocked.apply_H_sector_blocked on any device and dtype; a
+    hopping bond across the lo/hi cut must be the nearest-neighbour one
+    (Ll-1, Ll), as in the JAX package."""
     if layout not in (None, "compact", "embedded", "full", "sector_blocked",
                       "sector_kron"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -195,16 +219,12 @@ def build_model(
     if build_neighbor_table and layout not in ("compact", "full"):
         raise ValueError("build_neighbor_table applies to the compact and "
                          f"full layouts, not {layout!r}")
-    if layout == "sector_blocked":
-        raise NotImplementedError(
-            "layout='sector_blocked' is not ported: ROADMAP Queue 1, item 10 "
-            "(a candidate not to port)")
     if layout == "full" and nup is not None:
         raise ValueError("layout='full' takes nup=None; use "
                          "layout='embedded' for a sector in the full space")
     if not 1 <= L <= basis_mod.MAX_L:
         raise ValueError(f"L must be in [1, {basis_mod.MAX_L}], got {L}")
-    if layout in ("sector_kron", "embedded") and nup is None:
+    if layout not in ("compact", "full") and nup is None:
         raise ValueError(f"layout={layout!r} requires nup")
     if nup is not None and not 0 <= nup <= L:
         raise ValueError(f"nup must be in [0, {L}], got {nup}")
@@ -224,7 +244,13 @@ def build_model(
     if field.shape != (L,):
         raise ValueError(f"onsite_field must have shape ({L},)")
     hop_sites = tuple(zip(hop_i.tolist(), hop_j.tolist()))
-    if layout in ("compact", "embedded", "full"):
+    lo_bits = None
+    if layout == "sector_blocked":
+        from .ops.sector_blocked import make_sector_blocked_layout
+
+        lo_bits = make_sector_blocked_layout(
+            (L, nup, hop_sites, hop_J.astype(np.float64).tolist())).Ll
+    if layout in FLAT_MODES:
         return SpinModel(
             L=L, nup=nup, field=field,
             hop_i=hop_i, hop_j=hop_j, hop_J=hop_J,
@@ -233,8 +259,9 @@ def build_model(
             zz_sites=tuple(zip(zz_i.tolist(), zz_j.tolist())),
             kron_splits=None, kron_pads=None,
             n_states_static=(basis_mod.sector_dimension(L, nup)
-                             if layout == "compact" else 1 << L),
-            mode=layout, neighbor_table=bool(build_neighbor_table))
+                             if layout in SECTOR_MODES else 1 << L),
+            mode=layout, neighbor_table=bool(build_neighbor_table),
+            lo_bits=lo_bits)
     from .ops.sector_kron import make_sector_kron_layout
 
     lay = make_sector_kron_layout(
@@ -344,19 +371,60 @@ def _device_sector_setup(model: SpinModel, device, dtype, want_table):
     return states, diag, nbr
 
 
+def _device_blocked_setup(model: SpinModel, device, dtype):
+    """The torch build of a sector_blocked model on `device`: the states as
+    one outer product (hi << Ll) | lo per group, and the diagonal
+    accumulated in float64 in the host build's order (_compute_diag) and
+    stored in `dtype`, so that it equals the host build bit for bit. The
+    JAX package's route for large sectors on an accelerator."""
+    from .ops.sector_kron import _sector_states as part_states
+
+    def part(Lp, k):
+        return torch.from_numpy(part_states(Lp, k).astype(np.int64)).to(
+            device)
+
+    L, nup, Ll = model.L, model.nup, model.lo_bits
+    states = torch.cat([
+        ((part(L - Ll, k)[:, None] << Ll) | part(Ll, nup - k)[None, :])
+        .reshape(-1)
+        for k in range(max(0, nup - Ll), min(L - Ll, nup) + 1)])
+    f64 = torch.float64
+    acc = torch.zeros(states.shape, dtype=f64, device=device)
+    for i in np.nonzero(model.field)[0]:
+        acc += float(model.field[i]) * (((states >> int(i)) & 1).to(f64)
+                                        - 0.5)
+    for i, j, J in zip(model.zz_i, model.zz_j, model.zz_J):
+        bi = ((states >> int(i)) & 1).to(f64) - 0.5
+        bj = ((states >> int(j)) & 1).to(f64) - 0.5
+        acc += float(J) * bi * bj
+    return states, acc.to(dtype)
+
+
 def sector_setup(model: SpinModel, device, dtype: torch.dtype | None = None,
                  want_table: bool = True):
     """(states int64 [N], diag [N] in `dtype`, ELL table int32 [N, n_bonds]
     or None) of a compact model, or of a full model with a neighbour table,
-    on `device`. The JAX package's choice of build: the torch build
-    (_device_sector_setup) on the card, the host numpy build
-    (build_sector_basis, _compute_diag, _build_ell_table) on the CPU; the
-    two give the same states and table, bit for bit."""
-    if model.mode not in ("compact", "full"):
-        raise ValueError("sector_setup builds the compact and full layouts, "
-                         f"not mode={model.mode!r}")
+    on `device`; (states, diag, None) of a sector_blocked model. The JAX
+    package's choice of build: the torch build (_device_sector_setup,
+    _device_blocked_setup) on the card, the host numpy build
+    (build_sector_basis or blocked_order_states, _compute_diag,
+    _build_ell_table) on the CPU; the two give the same states and table,
+    bit for bit (and the same sector_blocked diagonal)."""
+    if model.mode not in ("compact", "full", "sector_blocked"):
+        raise ValueError("sector_setup builds the compact, sector_blocked "
+                         f"and full layouts, not mode={model.mode!r}")
     device = torch.device(device)
     dtype = model.dtype if dtype is None else dtype
+    if model.mode == "sector_blocked":
+        if device.type != "cpu":
+            return (*_device_blocked_setup(model, device, dtype), None)
+        from .ops.sector_blocked import blocked_order_states
+
+        states = blocked_order_states(model.L, model.nup,
+                                      model.lo_bits).astype(np.int64)
+        diag = _compute_diag(states, model.field, model.zz_i, model.zz_j,
+                             model.zz_J, _NP_DTYPES[dtype])
+        return torch.from_numpy(states), torch.from_numpy(diag), None
     if device.type != "cpu":
         return _device_sector_setup(model, device, dtype, want_table)
     states = (basis_mod.build_sector_basis(model.L, model.nup)

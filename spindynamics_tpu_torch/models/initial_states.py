@@ -1,8 +1,8 @@
 """Product-state constructors (port of
 spindynamics_tpu/models/initial_states.py). Host ints: bit i is site i
 (0-based). Every `*_state` constructor returns a flat state vector in the
-basis of a full, embedded or compact model; `solvers/blockvec.bv_basis_state` turns
-a bitstring into a kron state. The state a solver is given decides where
+basis of a full, embedded, compact or sector_blocked model;
+`solvers/blockvec.bv_basis_state` turns a bitstring into a kron state. The state a solver is given decides where
 the solver runs, so the constructors follow the port's device rule
 (utils/device.py): `device=None` is the card, and raises without one;
 a CPU state is asked for with device="cpu".
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..basis import rank_state
-from ..model import SpinModel
+from ..model import FLAT_MODES, SpinModel
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -45,17 +45,23 @@ def polarized_bitstring(model: SpinModel, up: bool = True) -> int:
 def state_index(model: SpinModel, bitstring: int) -> int:
     """Basis index of an encoded bitstring: the bitstring itself on a full
     or embedded model (an embedded model checks its magnetization), its
-    combinadic rank on a compact model (after the same check)."""
-    if model.mode not in ("full", "embedded", "compact"):
+    combinadic rank on a compact model and its blocked rank on a
+    sector_blocked model (after the same check)."""
+    if model.mode not in FLAT_MODES:
         raise ValueError(
-            "state_index needs a full, embedded or compact model; a "
-            "sector_kron state comes from solvers.blockvec.bv_basis_state")
+            "state_index needs a full, embedded, compact or sector_blocked "
+            "model; a sector_kron state comes from "
+            "solvers.blockvec.bv_basis_state")
     if model.mode != "full" and bin(bitstring).count("1") != model.nup:
         raise ValueError(
             f"state {bitstring:#x} has wrong magnetization for "
             f"{model.mode} sector nup={model.nup}")
     if model.mode == "compact":
         return rank_state(bitstring, model.L, model.nup)
+    if model.mode == "sector_blocked":
+        from ..ops.sector_blocked import blocked_rank
+
+        return blocked_rank(bitstring, model.L, model.nup, model.lo_bits)
     return int(bitstring)
 
 

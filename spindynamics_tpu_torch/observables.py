@@ -1,10 +1,11 @@
 """Diagonal observables of flat states from |psi|^2 (port of
-spindynamics_tpu/observables.py), for full, embedded and compact models.
+spindynamics_tpu/observables.py), for full, embedded, compact and
+sector_blocked models.
 
 Everything is one chunked pass over the probabilities: each chunk's
 [chunk, L] matrix of Sz eigenvalues is made from the chunk's basis states
 (its indices on a full or embedded model, the model's states on a compact
-one) and contracted against the probabilities, so a state of 2^26
+or sector_blocked one, in that model's order) and contracted against the probabilities, so a state of 2^26
 amplitudes never makes L state-sized temporaries. Matrix products run in
 full float32.
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .model import SpinModel
+from .model import FLAT_MODES, SpinModel
 
 __all__ = [
     "magnetization_per_site",
@@ -45,14 +46,15 @@ def _sz_columns(s0: int, n: int, L: int, dtype, device, states=None
 
 def _row_states(model, device):
     """The basis states the rows stand for where they are not the row
-    indices (a compact model), else None."""
-    return model.basis_states(device) if model.mode == "compact" else None
+    indices (a compact or sector_blocked model), else None."""
+    return model.basis_states(device) if model.stores_states else None
 
 
 def _flat_model(model, what):
-    if model.mode not in ("full", "embedded", "compact"):
-        raise ValueError(f"{what} needs a full, embedded or compact model; "
-                         "kron states use observables_kron")
+    if model.mode not in FLAT_MODES:
+        raise ValueError(f"{what} needs a full, embedded, compact or "
+                         "sector_blocked model; kron states use "
+                         "observables_kron")
 
 
 def magnetization_per_site(psi: torch.Tensor, model: SpinModel,

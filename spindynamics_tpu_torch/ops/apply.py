@@ -1,5 +1,6 @@
 """Matrix-free H|psi> on flat states (port of the flat parts of
-spindynamics_tpu/ops/apply.py): full, embedded and compact models.
+spindynamics_tpu/ops/apply.py): full, embedded, compact and sector_blocked
+models.
 
 Backends of `apply_H`:
 
@@ -14,18 +15,24 @@ Backends of `apply_H`:
                 compact model (or a full one built with a table), plain
                 torch on every device: the JAX package computes it with an
                 XLA gather, not a Pallas kernel.
+  - 'sector_blocked' : ops/sector_blocked.apply_H_sector_blocked, the
+                matrix products and row gathers of a sector_blocked model,
+                plain torch on every device (XLA code in the JAX package).
+  - 'tensor'  : `apply_H_tensor`, a full or embedded model's bonds as
+                double flips of a 5-D view, plain torch on every device
+                (XLA code in the JAX package).
 
 backend=None routes as the JAX package does: a compact model, and a full
 one with a neighbour table, go to 'ell' on any device and in any dtype
-(float64 on the card included: no kernel is involved). Otherwise a CUDA
-float32/complex64 state goes to K3, a CPU state to 'blocked'. One rule
-sends a CUDA state elsewhere: below K3's floor (`fused_supported`: L < 6)
-it goes to 'blocked'. Nothing else does: a CUDA float64/complex128 state of
-a full or embedded model with backend=None raises and names
-backend="blocked" (the JAX kernel computes such a state in float32 and
-casts back, which the port does not copy), and so does a model with more
-bonds than K3's lists hold (`make_fused_plan`). The 'tensor' backend is not
-ported (the package's NOT_PORTED says why).
+(float64 on the card included: no kernel is involved), a sector_blocked
+model to 'sector_blocked' likewise. Otherwise a CUDA float32/complex64
+state goes to K3, a CPU state to 'blocked'. One rule sends a CUDA state
+elsewhere: below K3's floor (`fused_supported`: L < 6) it goes to
+'blocked'. Nothing else does: a CUDA float64/complex128 state of a full or
+embedded model with backend=None raises and names backend="blocked" (the
+JAX kernel computes such a state in float32 and casts back, which the port
+does not copy), and so does a model with more bonds than K3's lists hold
+(`make_fused_plan`).
 
 The functional `apply_H` builds what its backend needs (K3's tables, the
 N-sized diagonal, the dense matrix) for that one apply; `FlatHamiltonian`
@@ -38,13 +45,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..model import SpinModel, sector_setup
+from ..model import FLAT_MODES, SpinModel, sector_setup
 from ..utils.device import resolve_device
 from ..utils.dtypes import real_dtype
 from .blocked import apply_H_blocked, make_blocked_plan
 from .fused_matvec import (
     FusedCall, fused_matvec_apply, fused_supported, fused_tables,
     make_fused_plan)
+from .sector_blocked import (
+    apply_H_sector_blocked, make_sector_blocked_layout, sector_blocked_tables)
 
 __all__ = [
     "apply_H",
@@ -52,38 +61,50 @@ __all__ = [
     "build_dense_H",
     "apply_H_dense",
     "apply_H_ell",
+    "apply_H_tensor",
     "matvec_fn",
     "FlatHamiltonian",
 ]
 
-_BACKENDS = ("dense", "blocked", "fused", "ell")
-_FLAT_MODES = ("full", "embedded", "compact")
+_BACKENDS = ("dense", "blocked", "fused", "ell", "sector_blocked", "tensor")
+# the backends each mode takes ('dense' takes every flat mode; 'ell' every
+# model built with a neighbour table, and a model without one says so)
+_MODE_BACKENDS = {
+    "full": ("dense", "blocked", "fused", "ell", "tensor"),
+    "embedded": ("dense", "blocked", "fused", "ell", "tensor"),
+    "compact": ("dense", "ell"),
+    "sector_blocked": ("dense", "ell", "sector_blocked"),
+}
 # rows of the ELL table gathered at once: the [rows, n_bonds] temporary
 # stays ~0.1 GB (float32) whatever N, where the JAX package gathers the
 # whole [N, n_bonds] matrix (4 GiB in float32 at L=28)
 ELL_CHUNK = 1 << 20
 # FlatHamiltonian's buffer prefixes of K3's tables: float32, complex64 plan
 _K3_PREFIX = {False: "k3_", True: "k3c_"}
+# ... and of the sector_blocked tables
+_SB_PREFIX = "sb_"
 
 
 def build_dense_H(model: SpinModel) -> np.ndarray:
     """Explicit dense H over the model's basis (host numpy, float64): the
-    validation oracle. The column of a flipped state is its searchsorted
-    position among the ascending basis states (its value for a full or
-    embedded model)."""
-    if model.mode not in _FLAT_MODES:
-        raise ValueError("build_dense_H needs a full, embedded or compact "
-                         "model")
+    validation oracle. The column of a flipped state is its position among
+    the basis states (its value for a full or embedded model), found by a
+    searchsorted in the states sorted once."""
+    if model.mode not in FLAT_MODES:
+        raise ValueError("build_dense_H needs a full, embedded, compact or "
+                         "sector_blocked model")
     states = model.basis_states("cpu").numpy()
     N = states.shape[0]
+    order = np.argsort(states, kind="stable")
     H = np.zeros((N, N), dtype=np.float64)
     H[np.arange(N), np.arange(N)] = model.diag("cpu", torch.float64).numpy()
     hop_J = np.asarray(model.hop_J, dtype=np.float64)
     for b in range(model.n_bonds):
         i, j = int(model.hop_i[b]), int(model.hop_j[b])
         differ = (((states >> i) ^ (states >> j)) & 1).astype(bool)
-        cols = np.searchsorted(states, states ^ ((1 << i) | (1 << j)))
-        H[np.arange(N)[differ], cols[differ]] += hop_J[b]
+        cols = order[np.searchsorted(
+            states[order], states[differ] ^ ((1 << i) | (1 << j)))]
+        H[np.arange(N)[differ], cols] += hop_J[b]
     return H
 
 
@@ -133,27 +154,31 @@ def apply_H_ell(psi: torch.Tensor, model: SpinModel,
 def _flat_backend(model: SpinModel, backend: str | None,
                   on_card: bool) -> str:
     """`backend` checked against the model, or the model's default: 'ell'
-    for a compact model or one with a neighbour table, else 'fused' on the
-    card (above K3's floor) and 'blocked' elsewhere."""
+    for a compact model or one with a neighbour table, 'sector_blocked'
+    for a sector_blocked model, else 'fused' on the card (above K3's
+    floor) and 'blocked' elsewhere."""
     if backend is None:
         if model.mode == "compact" or model.neighbor_table:
             return "ell"
+        if model.mode == "sector_blocked":
+            return "sector_blocked"
         return "fused" if on_card and fused_supported(model) else "blocked"
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{_BACKENDS}")
-    if model.mode == "compact" and backend in ("blocked", "fused"):
-        raise ValueError(f"backend {backend!r} runs full and embedded "
-                         "models; a compact model takes 'ell' or 'dense'")
+    if backend not in _MODE_BACKENDS[model.mode]:
+        raise ValueError(
+            f"backend {backend!r} does not run this model: the {model.mode} "
+            f"model takes {' or '.join(map(repr, _MODE_BACKENDS[model.mode]))}")
     return backend
 
 
 def _resolve_backend(psi: torch.Tensor, model: SpinModel,
                      backend: str | None) -> str:
-    if model.mode not in _FLAT_MODES:
+    if model.mode not in FLAT_MODES:
         raise ValueError(
-            f"apply_H runs full, embedded and compact models; "
-            f"mode={model.mode!r} goes through KronHamiltonian")
+            f"apply_H runs full, embedded, compact and sector_blocked "
+            f"models; mode={model.mode!r} goes through KronHamiltonian")
     resolved = _flat_backend(model, backend, psi.device.type == "cuda")
     if backend is not None or resolved != "fused":
         return resolved
@@ -164,14 +189,48 @@ def _resolve_backend(psi: torch.Tensor, model: SpinModel,
     return "fused"
 
 
+def apply_H_tensor(psi: torch.Tensor, model: SpinModel,
+                   diag: torch.Tensor | None = None) -> torch.Tensor:
+    """Full or embedded H|psi> with no gathers: psi[idx ^ mask] as a double
+    flip. For each bond on bits (i < j) psi is viewed as a 5-D tensor
+    (hi, 2, mid, 2, lo) with the two length-2 axes at bits j and i; XOR-ing
+    both bits of the index is a flip of those two axes, and the
+    bits-differ condition broadcasts from a (2, 2) pattern. Plain torch on
+    psi's device, in psi's dtype; `diag` defaults to the model's."""
+    if model.mode not in ("full", "embedded"):
+        raise ValueError("the tensor backend needs a full or embedded model")
+    rdtype = real_dtype(psi.dtype)
+    if diag is None:
+        diag = model.diag(psi.device, rdtype)
+    L = model.L
+    out = diag.to(rdtype) * psi
+    ax = torch.arange(2, device=psi.device)
+    mask22 = (ax[:, None, None] != ax[None, None, :]).to(rdtype)[None, ...,
+                                                                  None]
+    for b, (si, sj) in enumerate(model.hop_sites):
+        lo_bit, hi_bit = min(si, sj), max(si, sj)
+        t = psi.reshape(1 << (L - 1 - hi_bit), 2, 1 << (hi_bit - lo_bit - 1),
+                        2, 1 << lo_bit)
+        flipped = torch.flip(t, dims=(1, 3))
+        out = out + (float(model.hop_J[b]) * (mask22 * flipped)).reshape(-1)
+    return out
+
+
 def apply_H(psi: torch.Tensor, model: SpinModel, backend: str | None = None
             ) -> torch.Tensor:
-    """H|psi> for a full, embedded or compact model; dispatches by backend
-    (see the module docstring). Every backend builds its tables for this
-    one call: keep a FlatHamiltonian (matvec_fn) for repeated applies."""
+    """H|psi> for a full, embedded, compact or sector_blocked model;
+    dispatches by backend (see the module docstring). Every backend builds
+    its tables for this one call: keep a FlatHamiltonian (matvec_fn) for
+    repeated applies."""
     backend = _resolve_backend(psi, model, backend)
     if backend == "ell":
         return apply_H_ell(psi, model)
+    if backend == "sector_blocked":
+        return apply_H_sector_blocked(
+            psi, model.diag(psi.device, real_dtype(psi.dtype)),
+            make_sector_blocked_layout(model))
+    if backend == "tensor":
+        return apply_H_tensor(psi, model)
     if backend == "blocked":
         return apply_H_blocked(psi, model)
     if backend == "fused":
@@ -189,21 +248,25 @@ def apply_rescaled_H(psi: torch.Tensor, model: SpinModel, a, b,
 
 
 class FlatHamiltonian(nn.Module):
-    """H on flat states of one full, embedded or compact model: psi -> H psi.
+    """H on flat states of one full, embedded, compact or sector_blocked
+    model: psi -> H psi.
 
     Routing is fixed at construction, in the field `backend` ('fused',
-    'blocked', 'ell' or 'dense'; None resolves by the model, then by
-    `device`: a compact model, or a full one with a neighbour table, gives
-    'ell' on every device; otherwise the card gives 'fused', or 'blocked'
-    below K3's floor of L = 6, and the CPU gives 'blocked'). K3's plan
-    tables, the blocked apply's N-sized diagonal, the ell apply's states,
-    diagonal and int32 ELL table (sector_setup: the torch build on the
-    card, the host build on the CPU) or the dense matrix are registered
-    buffers, so `.to(device)` moves them; the diagonal and the dense matrix
-    are stored in `dtype` (default the model's). A blocked module applied
-    to a state of another precision rebuilds its diagonal in that one; an
-    ell module casts its diagonal and couplings to the state's dtype, as
-    the JAX package does. A 'fused' module takes float32 and complex64 CUDA
+    'blocked', 'ell', 'sector_blocked', 'tensor' or 'dense'; None resolves
+    by the model, then by `device`: a compact model, or a full one with a
+    neighbour table, gives 'ell' on every device, a sector_blocked model
+    'sector_blocked'; otherwise the card gives 'fused', or 'blocked' below
+    K3's floor of L = 6, and the CPU gives 'blocked'). K3's plan tables,
+    the blocked and tensor applies' N-sized diagonal, the ell apply's
+    states, diagonal and int32 ELL table (sector_setup: the torch build on
+    the card, the host build on the CPU), the sector_blocked apply's
+    states, diagonal and tables (buffers `sb_*`) or the dense matrix are
+    registered buffers, so `.to(device)` moves them; the diagonal, the real
+    tables and the dense matrix are stored in `dtype` (default the
+    model's). A blocked or tensor module applied to a state of another
+    precision rebuilds its diagonal in that one; an ell or sector_blocked
+    module casts its diagonal and couplings to the state's dtype, as the
+    JAX package does. A 'fused' module takes float32 and complex64 CUDA
     states, with one K3 plan per element type (the default tile is 32 KB:
     2^13 float32, 2^12 complex64 amplitudes), its tables buffers `k3_*` and
     `k3c_*`; on a CPU state it runs K3's plain version, as the wrapper
@@ -212,9 +275,10 @@ class FlatHamiltonian(nn.Module):
     def __init__(self, model: SpinModel, backend: str | None = None,
                  device=None, dtype: torch.dtype | None = None):
         super().__init__()
-        if model.mode not in _FLAT_MODES:
-            raise ValueError("FlatHamiltonian needs a full, embedded or "
-                             f"compact model, not mode={model.mode!r}")
+        if model.mode not in FLAT_MODES:
+            raise ValueError("FlatHamiltonian needs a full, embedded, "
+                             "compact or sector_blocked model, not "
+                             f"mode={model.mode!r}")
         device = resolve_device(device)
         backend = _flat_backend(model, backend, device.type == "cuda")
         if (backend == "ell" and not model.neighbor_table
@@ -247,8 +311,18 @@ class FlatHamiltonian(nn.Module):
             self.register_buffer("states", states, persistent=False)
             self.register_buffer("diag", diag, persistent=False)
             self.register_buffer("nbr", nbr, persistent=False)
+        elif backend == "sector_blocked":
+            rdt = real_dtype(dtype or model.dtype)
+            self.layout = make_sector_blocked_layout(model)
+            states, diag, _ = sector_setup(model, device, rdt)
+            self.register_buffer("states", states, persistent=False)
+            self.register_buffer("diag", diag, persistent=False)
+            for name, t in sector_blocked_tables(self.layout, device,
+                                                 rdt).items():
+                self.register_buffer(_SB_PREFIX + name, t, persistent=False)
         else:
-            self.blocked_plan = make_blocked_plan(model)
+            self.blocked_plan = (make_blocked_plan(model)
+                                 if backend == "blocked" else None)
             self.register_buffer(
                 "diag", model.diag(device, real_dtype(dtype or model.dtype)),
                 persistent=False)
@@ -275,15 +349,23 @@ class FlatHamiltonian(nn.Module):
             return apply_H_dense(psi, self.H.to(real_dtype(psi.dtype)))
         if self.backend == "ell":
             return apply_H_ell(psi, self.model, self.nbr, self.diag)
+        if self.backend == "sector_blocked":
+            n = len(_SB_PREFIX)
+            return apply_H_sector_blocked(
+                psi, self.diag, self.layout,
+                {name[n:]: b for name, b in self.named_buffers()
+                 if name.startswith(_SB_PREFIX)})
         if self.diag.dtype != real_dtype(psi.dtype):
             self.diag = self.model.diag(self.device, real_dtype(psi.dtype))
+        if self.backend == "tensor":
+            return apply_H_tensor(psi, self.model, self.diag)
         return apply_H_blocked(psi, self.model, self.blocked_plan, self.diag)
 
 
 def matvec_fn(model: SpinModel, backend: str | None = None, device=None
               ) -> FlatHamiltonian:
-    """The H apply of a full, embedded or compact model for the solver
-    layer: an nn.Module whose tables are buffers and whose backend is a
-    field. `device` defaults to the card (pass device="cpu" for a CPU
-    module)."""
+    """The H apply of a full, embedded, compact or sector_blocked model
+    for the solver layer: an nn.Module whose tables are buffers and whose
+    backend is a field. `device` defaults to the card (pass device="cpu"
+    for a CPU module)."""
     return FlatHamiltonian(model, backend=backend, device=device)

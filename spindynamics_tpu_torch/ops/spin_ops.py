@@ -1,14 +1,15 @@
 """Single-site spin operators and S^z_q vectors on flat states (port of
-spindynamics_tpu/ops/spin_ops.py for the full, embedded and compact
-layouts).
+spindynamics_tpu/ops/spin_ops.py for the full, embedded, compact and
+sector_blocked layouts).
 
 S^z is diagonal: a multiply by (bit - 1/2), the bit read from the basis
-states (a compact model's come from model.basis_states). S^+/S^-/S^x/S^y
-flip one bit: on a full or embedded model the target index is idx XOR
-2^site, one flip of an axis of length 2, and on an embedded model the
-result lies outside the sector, as in the JAX package; on a compact model
-a single flip leaves the sector, so its projection back onto the basis is
-zero (the reference's dictionary-miss semantics), as in the JAX package.
+states (a compact or sector_blocked model's come from model.basis_states).
+S^+/S^-/S^x/S^y flip one bit: on a full or embedded model the target index
+is idx XOR 2^site, one flip of an axis of length 2, and on an embedded
+model the result lies outside the sector, as in the JAX package; on a
+compact or sector_blocked model a single flip leaves the sector, so its
+projection back onto the basis is zero (the reference's dictionary-miss
+semantics), as in the JAX package.
 S^z_q is diagonal: phi = w_q * psi with w_q[n] = L^{-1/2} sum_r e^{iqr}
 sz_r(n).
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..model import SpinModel
+from ..model import FLAT_MODES, SpinModel
 from ..utils.dtypes import complex_dtype, real_dtype
 
 __all__ = ["apply_spin_operator", "make_spin_operator", "sz_q_weights",
@@ -44,14 +45,14 @@ def apply_spin_operator(psi: torch.Tensor, model: SpinModel, site: int,
     """Apply S^{kind}_site to psi; kind in {'z', 'plus', 'minus', 'x', 'y'}
     (S^z eigenvalues +-1/2, S^+/S^- amplitudes 1, S^x amplitude 1/2, S^y
     amplitudes -+ i/2)."""
-    if model.mode not in ("full", "embedded", "compact"):
-        raise ValueError("apply_spin_operator needs a full, embedded or "
-                         "compact model")
+    if model.mode not in FLAT_MODES:
+        raise ValueError("apply_spin_operator needs a full, embedded, "
+                         "compact or sector_blocked model")
     if not 0 <= site < model.L:
         raise ValueError(f"site {site} out of range [0, {model.L})")
     if kind not in ("z", "plus", "minus", "x", "y"):
         raise ValueError(f"unknown operator kind {kind!r}")
-    if model.mode == "compact" and kind != "z":
+    if model.stores_states and kind != "z":
         # one flip leaves the sector: the projection onto the basis is 0
         return torch.zeros_like(psi, dtype=complex_dtype(psi.dtype)
                                 if kind == "y" else psi.dtype)

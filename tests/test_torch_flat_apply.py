@@ -109,12 +109,17 @@ def test_layout_rules():
     compact = pt.build_model(6, nup=3, hopping=hop, layout="compact")
     assert compact.mode == "compact" and compact.n_states == 20
     assert compact.neighbor_table and compact.valid_mask() is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10 "):
-        pt.build_model(6, nup=3, hopping=hop, layout="sector_blocked")
+    blocked = pt.build_model(6, nup=3, hopping=hop, layout="sector_blocked")
+    assert blocked.mode == "sector_blocked" and blocked.n_states == 20
+    assert blocked.lo_bits == 4 and blocked.valid_mask() is None
+    assert not blocked.neighbor_table
+    with pytest.raises(ValueError, match="requires nup"):
+        pt.build_model(6, hopping=hop, layout="sector_blocked")
     with pytest.raises(ValueError, match="unknown layout"):
         pt.build_model(6, nup=3, hopping=hop, layout="ell")
     kron = pt.build_model(6, nup=3, hopping=hop)
-    with pytest.raises(ValueError, match="full, embedded or compact"):
+    with pytest.raises(ValueError,
+                       match="full, embedded, compact or sector_blocked"):
         kron.valid_mask()
 
 
@@ -194,7 +199,7 @@ def test_apply_H_backends_and_rescaled():
     x = _state(mj, np.random.default_rng(3), True)
     xt = state_from_numpy(x, "cpu")
     want = pt.build_dense_H(mt) @ x
-    for backend in (None, "blocked", "dense", "fused"):
+    for backend in (None, "blocked", "dense", "fused", "tensor"):
         y = pt.apply_H(xt, mt, backend=backend)
         assert np.abs(state_to_numpy(y) - want).max() <= 1e-12 * np.abs(
             want).max(), backend
@@ -208,14 +213,14 @@ def test_apply_H_backends_and_rescaled():
     with pytest.raises(ValueError, match="unknown backend"):
         pt.apply_H(xt, mt, backend="pallas")
     with pytest.raises(ValueError, match="unknown backend"):
-        pt.matvec_fn(mt, backend="tensor", device="cpu")
+        pt.matvec_fn(mt, backend="sector_kron", device="cpu")
     # 'ell' is a backend now; an embedded model has no table for it
     with pytest.raises(ValueError, match="no ELL neighbour table"):
         pt.matvec_fn(mt, backend="ell", device="cpu")
     kron = pt.xxz_chain(8, nup=4)
     with pytest.raises(ValueError, match="KronHamiltonian"):
         pt.apply_H(xt, kron)
-    with pytest.raises(ValueError, match="full, embedded or compact"):
+    with pytest.raises(ValueError, match="full, embedded, compact or sector_blocked"):
         pt.matvec_fn(kron, device="cpu")
 
 

@@ -166,10 +166,14 @@ def test_blocks_roundtrip():
 
 
 def test_other_layouts_not_ported():
-    # compact is ported (tests/test_torch_compact.py); sector_blocked is not
+    # every layout of the JAX package is ported now: compact
+    # (tests/test_torch_compact.py) and sector_blocked
+    # (tests/test_torch_sector_blocked.py) build; an unknown one raises
     assert pt.build_model(8, nup=4, layout="compact").mode == "compact"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_model(8, nup=4, layout="sector_blocked")
+    m = pt.build_model(8, nup=4, layout="sector_blocked")
+    assert m.mode == "sector_blocked" and m.lo_bits is not None
+    with pytest.raises(ValueError, match="unknown layout"):
+        pt.build_model(8, nup=4, layout="sector")
 
 
 @pytest.mark.parametrize("L,nup", [(8, 3), (12, 6), (16, 8)])

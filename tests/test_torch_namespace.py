@@ -27,10 +27,8 @@ def test_namespace_covers_the_jax_package():
     assert len(pt.__all__) == len(set(pt.__all__))
     assert all(v.startswith(("ROADMAP", "not ported"))
                for v in pt.NOT_PORTED.values())
-    # the compact layout, flat typicality and checkpoint/resume are ported:
-    # what is left is not to be ported
-    assert set(pt.NOT_PORTED) == {"evolve_trajectory_planes",
-                                  "apply_H_tensor"}
+    # the tensor backend is ported: what is left is not to be ported
+    assert set(pt.NOT_PORTED) == {"evolve_trajectory_planes"}
 
 
 def _lr(i, j):
@@ -92,3 +90,30 @@ def test_basis_state_is_one_at_its_kron_rank():
     assert all(torch.equal(a, b) for a, b in zip(back.leaves, bv.leaves))
     with pytest.raises(ValueError, match="magnetization"):
         pt.bv_basis_state(lay, 0b111, device="cpu")
+
+
+@pytest.mark.parametrize("L,nup", [(8, 4), (16, 8), (28, 14), (32, 15)])
+def test_kron_split_argmin_matches_jax(L, nup):
+    """The split study ported verbatim: the same argmin (float32 and
+    bfloat16 amplitude widths) and the same cost of the default split."""
+    for itemsize in (4, 2):
+        assert tsk.kron_split_argmin(L, nup, itemsize) == \
+            jsk.kron_split_argmin(L, nup, itemsize)
+    splits = tsk.default_kron_splits(L)
+    assert tsk._kron_split_cost(L, nup, splits) == \
+        jsk._kron_split_cost(L, nup, splits)
+    with pytest.raises(ValueError):
+        tsk.kron_split_argmin(3)
+
+
+def test_profiling_trace_and_annotate(tmp_path):
+    """utils.profiling: trace writes a Chrome trace and yields the
+    profiler; annotate names a range in its table."""
+    from spindynamics_tpu_torch.utils.profiling import annotate, trace
+
+    with trace(str(tmp_path / "t")) as prof:
+        with annotate("apply_phase"):
+            pt.apply_H(torch.ones(1 << 6, dtype=torch.float64),
+                       pt.xxz_chain(6, dtype=torch.float64))
+    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
+    assert "apply_phase" in {e.key for e in prof.key_averages()}
