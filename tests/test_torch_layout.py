@@ -47,6 +47,12 @@ def test_port_imports_no_jax():
         "import spindynamics_tpu_torch.parallel.mesh\n"
         "import spindynamics_tpu_torch.parallel.distributed\n"
         "import spindynamics_tpu_torch.parallel.sharded_kron_scaling\n"
+        "import spindynamics_tpu_torch.cli\n"
+        "from spindynamics_tpu_torch.examples import (\n"
+        "    example, example_kpm, example_kpm_dos, example_kpm_sqw,\n"
+        "    example_kron_corr, example_kron_evolve, example_kron_lanczos_sqw,\n"
+        "    example_kron_sqw, example_kron_typicality, example_lanczos_sqw,\n"
+        "    example_large_L, gs_ladder, l32_groundstate)\n"
         "sys.path.insert(0, 'tests')\n"
         "import _torch_dist_worker\n"
         "import chip_smoke\n"
