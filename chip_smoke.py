@@ -1904,7 +1904,7 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     dK = float(np.abs(K - S_main).max()) / float(np.abs(S_main).max())
     dS = float(np.abs(obs - einfo["obs"]).max())
     rec.update(ground_state_s=t_gs, kpm_s=t_kpm, lanczos_sqw_s=t_sqw,
-               trajectory_s=t_ev, peak_bytes=peak,
+               trajectory_s=t_ev, peak_bytes=peak, E0=E0,
                applies={"ground_state": n_gs.n, "kpm_sqw": n_kpm.n,
                         "lanczos_sqw": n_sqw.n, "trajectory": n_ev.n})
     print(f"compact-main L={L}: E0 {E0:.6f} (kron {E0_main:.6f}, |d| "
@@ -2538,6 +2538,230 @@ def phase_dist1(L, dev):
         dist.destroy_process_group()
 
 
+def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
+    """The row-sharded flat path on LocalMesh(D) on the card (plain torch
+    throughout: the JAX package's shard_map applies are XLA code). Compact
+    Lc: the all-gather and halo ELL applies held to the unsharded ell
+    apply on the same state (1e-5 of max|y|, pad rows exactly 0), their
+    collective bytes to the model (all-gather D (D-1) B 4, halo D (D-1) Hp
+    4, no all-gather in the halo apply), ms per apply, set-up seconds; the
+    card's halo plan equal to the host's at L=24; a ground state through
+    the halo apply (matvec_fn of a model placed by shard_model) within
+    1e-4 of compact-main's E0. Embedded Lf: the sharded blocked apply held
+    to K3 on the same state (1e-5 of max|y|), ms per apply, exchanges; a
+    ground state within 1e-4 of flat-main's E0, with no K3 launch (no
+    unsharded fallback). Then the halo apply on a ProcessMesh of one NCCL
+    rank against LocalMesh(1). E0 references the phase has not been given
+    are solved here, unsharded. Returns the phase's record."""
+    import socket
+
+    import spindynamics_tpu_torch as pt
+    import torch.distributed as dist
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+    from spindynamics_tpu_torch.parallel import sharded_apply as tsa
+
+    rec = {"D": D, "L_compact": Lc, "L_flat": Lf}
+    mesh = pt.LocalMesh(D, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = _compact_model(Lc)
+    N = m.n_states
+    ref = pt.matvec_fn(m, device=dev)
+    x = _flat_state(m, dev, False, Lc + 1)
+    want = ref(x)
+    scale = float(want.abs().max())
+    ell_ms = _event_ms(lambda: ref(x), reps=10)
+    if E0_compact is None:
+        E0_compact = pt.lanczos_groundstate_restarted(
+            ref, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
+            generator=torch.Generator(device=dev).manual_seed(0))[0]
+    del ref
+    torch.cuda.empty_cache()
+    xs = pt.shard_state(x, mesh)
+    out = {}
+    for name, fn in (("all-gather", pt.sharded_matvec_fn),
+                     ("halo", pt.sharded_matvec_halo_fn)):
+        (mv, pm), t_set = _sync_time(lambda: fn(m, mesh))
+        B = pm.n_states // D
+        mesh.reset_counters()
+        y = mv(xs)
+        c = mesh.counters()
+        err = float((y[:N] - want).abs().max()) / scale
+        pad_zero = not bool(y[N:].any())
+        ms = _event_ms(lambda: mv(xs), reps=10)
+        model_bytes = (D * (D - 1) * B * 4 if name == "all-gather"
+                       else D * (D - 1) * mv.Hp * 4)
+        got_bytes = c["all_gather_bytes"] + c["permute_bytes"]
+        table = mv.nbr.numel() * mv.nbr.element_size()
+        # the table once, the state and the diagonal read, the result
+        # written (compact-main's ell bound); the exchanges on one card
+        # are reported beside it
+        bound = _bound(table + pm.n_states * 12, 0.0)
+        out[name] = {"ms": ms, "setup_s": t_set, "max_rel_err": err,
+                     "collective_bytes": got_bytes, "Hp": mv.Hp,
+                     "n_all_gather": c["n_all_gather"],
+                     "n_permute": c["n_permute"], "bound_ms": bound[0]}
+        print(f"shard-flat L={Lc} compact {name} apply on LocalMesh({D}): "
+              f"max|d|/max|y| {err:.2e} against the unsharded ell apply "
+              f"(<= 1e-5), pad rows zero {pad_zero} | {ms:.3f} ms per apply "
+              f"(unsharded ell {ell_ms:.3f} ms; bound {bound[0]:.3f} ms by "
+              f"{bound[1]}: table {table} bytes, the state, diagonal and "
+              f"result) | collective bytes "
+              f"{got_bytes} (model {model_bytes}), all-gathers "
+              f"{c['n_all_gather']}, exchanges {c['n_permute']}, Hp "
+              f"{mv.Hp} of B {B} | set-up {t_set:.2f} s (the torch build "
+              f"of the padded table{', the card halo plan' if mv.Hp else ''})")
+        if not (err <= 1e-5 and pad_zero):
+            raise RuntimeError(f"sharded {name} apply off the ell apply by "
+                               f"{err} (pad rows zero: {pad_zero})")
+        if got_bytes != model_bytes:
+            raise RuntimeError(f"{name} moved {got_bytes} bytes, the model "
+                               f"says {model_bytes}")
+        if name == "halo" and c["n_all_gather"]:
+            raise RuntimeError("the halo apply all-gathered the state")
+        del mv, y
+        torch.cuda.empty_cache()
+    rec["compact"] = dict(out, ell_ms=ell_ms, N=N)
+    # the card's halo plan against the host's, at L=24 (the host's np.unique
+    # passes at Lc would dominate the phase)
+    pm24 = tsa.pad_model(_compact_model(24), D)
+    (_, _, nbr_h), t_tab = _sync_time(lambda: pt.model.sector_setup(pm24,
+                                                                    "cpu"))
+    host, t_host = _sync_time(lambda: tsa.build_halo_plan(
+        nbr_h.numpy(), pm24.n_states, D))
+    nbr_c = pt.model.sector_setup(pm24, dev)[2]
+    card, t_card = _sync_time(lambda: tsa.build_halo_plan_torch(
+        nbr_c, pm24.n_states, D))
+    same = card[2] == host[2] and all(
+        np.array_equal(a.cpu().numpy(), b) for a, b in zip(card[:2],
+                                                            host[:2]))
+    print(f"shard-flat L=24 halo plan, D={D}: the card's build equal to the "
+          f"host's bit for bit {same} (Hp {host[2]}) | card {t_card:.3f} s, "
+          f"host {t_host:.3f} s (the host's table {t_tab:.2f} s)")
+    if not same:
+        raise RuntimeError("the card's halo plan differs from the host's")
+    del nbr_c, card, host, nbr_h
+    rec["plan_L24"] = {"card_s": t_card, "host_s": t_host}
+    # a ground state through the halo apply, the model placed on the mesh
+    m_sh = pt.shard_model(m, mesh)
+    mv = pt.matvec_fn(m_sh)
+    mesh.reset_counters()
+    (E0, psi, info), t_gs = _sync_time(
+        lambda: pt.lanczos_groundstate_restarted(
+            mv, N=m_sh.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
+            mask=m_sh.valid_mask(dev),
+            generator=torch.Generator(device=dev).manual_seed(0)))
+    c = mesh.counters()
+    dE = abs(E0 - E0_compact)
+    pad_zero = not bool(psi[N:].any())
+    print(f"shard-flat L={Lc} compact ground state through the halo apply on "
+          f"LocalMesh({D}): E0 {E0:.6f} (unsharded {E0_compact:.6f}, |d| "
+          f"{dE:.2e} <= 1e-4) residual {info['residual']:.2e} cycles "
+          f"{info['cycles']} | {t_gs:.2f} s, {c['n_permute'] // (D - 1)} "
+          f"applies, {c['permute_bytes'] / 2**20:.1f} MiB exchanged | pad "
+          f"rows zero {pad_zero}")
+    if not (dE <= 1e-4 and info["residual"] <= 1e-3 and pad_zero):
+        raise RuntimeError(f"sharded compact E0 {E0} off {E0_compact} by "
+                           f"{dE} (residual {info['residual']})")
+    rec["compact"].update(ground_state_s=t_gs, E0=E0)
+    del mv, psi, x, xs, want
+    torch.cuda.empty_cache()
+    rec["compact_peak_bytes"] = torch.cuda.max_memory_allocated()
+    # embedded Lf: the sharded blocked apply against K3
+    torch.cuda.reset_peak_memory_stats()
+    me = _flat_model(Lf)
+    k3 = pt.matvec_fn(me, device=dev)
+    xe = _flat_state(me, dev, False, Lf + 2)
+    want = k3(xe)
+    scale = float(want.abs().max())
+    k3_ms = _event_ms(lambda: k3(xe), reps=10)
+    if E0_flat is None:
+        E0_flat = pt.lanczos_groundstate_restarted(
+            k3, N=me.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
+            mask=me.valid_mask(dev),
+            generator=torch.Generator(device=dev).manual_seed(0))[0]
+    del k3
+    mvb, t_set = _sync_time(lambda: pt.matvec_fn(me, mesh=mesh))
+    xse = pt.shard_state(xe, mesh)
+    mesh.reset_counters()
+    y = mvb(xse)
+    c = mesh.counters()
+    err = float((y - want).abs().max()) / scale
+    ms = _event_ms(lambda: mvb(xse), reps=10)
+    n_cross = len(mvb.sharded.crossing)
+    ex_bytes = n_cross * me.n_states * 4
+    print(f"shard-flat L={Lf} embedded sharded blocked apply on "
+          f"LocalMesh({D}): max|d|/max|y| {err:.2e} against K3 (<= 1e-5) | "
+          f"{ms:.3f} ms per apply (K3 {k3_ms:.3f} ms) | {n_cross} "
+          f"shard-crossing bonds, {c['n_permute']} exchanges, "
+          f"{c['permute_bytes']} bytes (model {ex_bytes}) | set-up "
+          f"{t_set:.2f} s")
+    if not err <= 1e-5:
+        raise RuntimeError(f"sharded blocked apply off K3 by {err}")
+    if (c["n_permute"], c["permute_bytes"]) != (n_cross, ex_bytes):
+        raise RuntimeError("the sharded blocked apply's exchanges differ "
+                           "from one whole shard per crossing bond")
+    del y, xse
+    fm.reset_kernel_launch_count()
+    (Eb, psib, infob), t_gsb = _sync_time(
+        lambda: pt.lanczos_groundstate_restarted(
+            mvb, N=me.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
+            mask=me.valid_mask(dev),
+            generator=torch.Generator(device=dev).manual_seed(0)))
+    n_k3 = fm.kernel_launch_count()
+    dEb = abs(Eb - E0_flat)
+    outside = bool(psib[~me.valid_mask(dev)].any())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"shard-flat L={Lf} embedded ground state through the sharded "
+          f"blocked apply: E0 {Eb:.6f} (unsharded K3 {E0_flat:.6f}, |d| "
+          f"{dEb:.2e} <= 1e-4) residual {infob['residual']:.2e} cycles "
+          f"{infob['cycles']} | {t_gsb:.2f} s | K3 launches {n_k3} (0: no "
+          f"unsharded fallback) | weight outside the sector {outside} | peak "
+          f"{peak / 2**30:.2f} GiB (compact part "
+          f"{rec['compact_peak_bytes'] / 2**30:.2f} GiB)")
+    if not (dEb <= 1e-4 and infob["residual"] <= 1e-3) or outside or n_k3:
+        raise RuntimeError(f"sharded embedded E0 {Eb} off {E0_flat} by {dEb}"
+                           f" (K3 launches {n_k3}, outside {outside})")
+    rec["embedded"] = {"ms": ms, "k3_ms": k3_ms, "max_rel_err": err,
+                       "crossing_bonds": n_cross, "exchanged_bytes": ex_bytes,
+                       "ground_state_s": t_gsb, "E0": Eb, "peak_bytes": peak}
+    del mvb, psib, xe, want
+    torch.cuda.empty_cache()
+    # one NCCL rank: the ProcessMesh form of the halo apply
+    if not (dist.is_available() and dist.is_nccl_available()):
+        raise RuntimeError("torch.distributed has no NCCL here")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        pmesh = pt.ProcessMesh()
+        x = _flat_state(m, dev, False, Lc + 3)
+        yl = pt.sharded_matvec_halo_fn(m, pt.LocalMesh(1, dev))[0](x)
+        mvp = pt.sharded_matvec_halo_fn(m, pmesh, device=dev)[0]
+        yp, t_p = _sync_time(lambda: mvp(pt.shard_state(x, pmesh)))
+        mvg = pt.sharded_matvec_fn(m, pmesh, device=dev)[0]
+        yg = mvg(pt.shard_state(x, pmesh))
+        torch.cuda.synchronize()
+        errp = max(float((yp - yl).abs().max()),
+                   float((yg - yl).abs().max())) / float(yl.abs().max())
+        cnt = pmesh.counters()
+        print(f"shard-flat: ProcessMesh over NCCL, world size 1, L={Lc}: the "
+              f"halo and all-gather applies against LocalMesh(1) max|d|/"
+              f"max|y| {errp:.2e} (<= 1e-6), first apply {t_p:.2f} s | "
+              f"all-gathers {cnt['n_all_gather']}")
+        if not errp <= 1e-6 or cnt["n_all_gather"] != 1:
+            raise RuntimeError(f"ProcessMesh flat applies off LocalMesh(1) "
+                               f"by {errp}")
+        del mvp, mvg, x, yl, yp, yg
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec
+
+
 # Runs `python -m MODULE ARGS` (runpy's module-as-main, what -m does) and
 # reports on stderr, at exit, the kernels' launch counts of that process
 # and its peak device memory.
@@ -3144,8 +3368,10 @@ def phase_profile(L, dev, psi, kinfo):
 
 
 def phase_profile_term(L, dev, info):
-    """Kernel-time table of one fused Chebyshev term (seeds + K2 + tail) at
-    the trajectory's bounds."""
+    """Kernel-time tables of one fused Chebyshev term (seeds + K2 + tail) at
+    the trajectory's bounds, float32 and bfloat16 states, and the launches
+    of each (the cudaLaunchKernel calls the profiler sees, K2's included):
+    a bfloat16 term should make no more than a float32 one."""
     from spindynamics_tpu_torch.ops import cheb_term as ct
     from spindynamics_tpu_torch.ops import kron_group as kg
     from spindynamics_tpu_torch.ops.sector_kron import make_sector_kron_layout
@@ -3158,27 +3384,44 @@ def phase_profile_term(L, dev, info):
     lay = make_sector_kron_layout(m, m.kron_splits)
     planes = ke.kron_planes_matvec_fn(lay, device=dev)
     H = planes.H
-    g = torch.Generator(device=dev).manual_seed(1)
-    prev, curr, acc = ((bv_random(lay, g, torch.float32, dev),
-                        bv_random(lay, g, torch.float32, dev))
-                       for _ in range(3))
     c_ri, (a_inv, b) = ke._coeff_arrays(chebyshev_coefficients(
         0.1, info["Ebounds"][0], info["Ebounds"][1], 40))
     scal = (a_inv, b, float(c_ri[2, 0]), float(c_ri[2, 1]))
     fused = kg.fused_group_set(lay, planes.cheb_top_k)
+    counts = {}
+    for sdt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(1)
+        prev, curr = ((bv_random(lay, g, sdt, dev),
+                       bv_random(lay, g, sdt, dev)) for _ in range(2))
+        acc = (bv_random(lay, g, torch.float32, dev),
+               bv_random(lay, g, torch.float32, dev))
 
-    def term():
-        return ct.cheb_term_fused(lay, H.tables, H.calls, fused, prev, curr,
-                                  acc, scal)
+        def term():
+            # a term of the scan from its second on: written over prev
+            return ct.cheb_term_fused(lay, H.tables, H.calls, fused, prev,
+                                      curr, acc, scal, reuse_prev=True)
 
-    term()  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        term()
+        term()  # warm
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=15)
-    print("profile (one fused Chebyshev term):\n" + table)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            term()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        counts[sdt] = sum(e.count for e in ka if "LaunchKernel" in e.key)
+        # wall time per term without the profiler: 10 terms, one sync
+        _, t10 = _sync_time(lambda: [term() for _ in range(10)])
+        name = "float32" if sdt == torch.float32 else "bfloat16"
+        print(f"profile (one fused Chebyshev term, {name} states, L={L}, "
+              f"{len(fused)} of {len(lay.groups)} groups through K2): "
+              f"{counts[sdt]} kernel launches, {t10 * 100:.2f} ms per term "
+              f"(wall, 10 terms)\n"
+              + ka.table(sort_by="cuda_time_total", row_limit=15))
+        del prev, curr, acc
+        torch.cuda.empty_cache()
+    n32, n16 = counts[torch.float32], counts[torch.bfloat16]
+    print(f"profile L={L}: kernel launches per fused term float32 {n32}, "
+          f"bfloat16 {n16} ({n16 - n32:+d})")
 
 
 def main(argv=None):
@@ -3200,6 +3443,13 @@ def main(argv=None):
                          "ground state")
     ap.add_argument("--k3-against", default=None, dest="k3_against",
                     metavar="DIR")
+    ap.add_argument("--shard-flat", action="store_true", dest="shard_flat",
+                    help="build the kernels and run the shard-flat phase "
+                         "alone (its E0 references solved unsharded); no "
+                         "result line")
+    ap.add_argument("--bf16-steps", action="store_true", dest="bf16_steps",
+                    help="the float32 and bfloat16 trajectories at --L and "
+                         "the launches of one term of each; no result line")
     args = ap.parse_args(argv)
     if args.L % 2 or not 16 <= args.L <= 32:
         raise SystemExit("--L must be even, 16..32")
@@ -3219,6 +3469,16 @@ def main(argv=None):
     from spindynamics_tpu_torch import BlockVec  # (the import pins TF32 off)
 
     phase_build()
+    if args.shard_flat or args.bf16_steps:
+        # measurements of one part, not the smoke: no result line
+        if args.shard_flat:
+            print(json.dumps({"shard_flat": phase_shard_flat(
+                args.L_compact, args.L_flat, args.shards, dev)}))
+        if args.bf16_steps:
+            _, einfo = phase_evolve(args.L, dev)
+            phase_evolve_bf16(args.L, dev, einfo)
+            phase_profile_term(args.L, dev, einfo)
+        return 0
     phase_k1(16, dev)
     abs_err, rel_err, k_ms, p_ms, bound1, fbound1 = phase_k1(args.L, dev)
     phase_k2(16, dev)
@@ -3276,6 +3536,8 @@ def main(argv=None):
     cw_launches = phase_shard_main(args.L, args.shards, dev, E0, S_main)
     phase_shard_evolve(args.L, args.shards, dev, einfo)
     phase_dist1(args.L, dev)
+    sf = phase_shard_flat(args.L_compact, args.L_flat, args.shards, dev,
+                          ell["E0"], E0_flat)
     sb = phase_sector_blocked(args.L, dev, E0)
     cli = phase_cli(args.L, args.L_flat, dev,
                     (E0, E0_flat, einfo["obs"]))
@@ -3287,6 +3549,7 @@ def main(argv=None):
     ex_n = {k: sum(r["launches"][k] for r in examples) for k in ("K1", "K2")}
     print(json.dumps({"sector_blocked": dict(
         sb, library="torch sparse CSR H @ psi of the compact model")}))
+    print(json.dumps({"shard_flat": sf}))
     print(json.dumps({"ell": dict(ell, typicality_s=typ["compact"][2],
                                   typicality_applies=typ["compact"][1],
                                   library="torch sparse CSR H @ psi")}))

@@ -11,6 +11,10 @@ by ops/sector_blocked.py), `embedded` (one U(1) sector run inside the full
 states, the diagonal and the ELL table are built on demand on the device
 that asks (`basis_states(device)`, `diag(device)`, `sector_setup`), and the
 module that applies H holds what it needs (ops/apply.FlatHamiltonian). A
+flat model padded for row sharding (parallel/sharded_apply.pad_model, the
+JAX package's) keeps its logical size in `n_valid`: its pad rows have
+state 0, diagonal 0 and no neighbour (-1), so they stay exactly zero; a
+model placed on a mesh (parallel/mesh.shard_model) names it in `mesh`. A
 compact or sector_blocked build follows the JAX package's choice: on the
 card a torch build (compact: L unrank passes, then one combinadic-rank pass
 per bond; sector_blocked: the per-group outer products of the hi and lo
@@ -70,6 +74,10 @@ class SpinModel:
     neighbor_table: bool = False
     # the lo part's bit count Ll of a sector_blocked model
     lo_bits: int | None = None
+    # the LocalMesh or ProcessMesh a flat model's rows are sharded over
+    # (parallel/mesh.shard_model): its applies, dots and observables
+    # then run on the mesh's row shards
+    mesh: object = dataclasses.field(default=None, repr=False)
 
     @property
     def n_states(self) -> int:
@@ -85,6 +93,25 @@ class SpinModel:
                              f"sector_blocked model, not mode={self.mode!r}")
 
     @property
+    def padded(self) -> bool:
+        """True for a flat model padded to a multiple of a shard count:
+        rows n_valid..n_states-1 are pad rows."""
+        return self.mode in FLAT_MODES and self.n_valid is not None
+
+    def logical(self) -> "SpinModel":
+        """The model without its sharding pad rows and mesh."""
+        if not self.padded and self.mesh is None:
+            return self
+        return dataclasses.replace(self, n_states_static=self.dim,
+                                   n_valid=None, mesh=None)
+
+    def _pad_rows(self, x: torch.Tensor, value=0) -> torch.Tensor:
+        """x [dim, ...] extended by the pad rows, filled with `value`."""
+        pad = x.new_full((self.n_states - x.shape[0],) + tuple(x.shape[1:]),
+                         value)
+        return torch.cat([x, pad])
+
+    @property
     def stores_states(self) -> bool:
         """True where the rows stand for basis states other than their
         indices (compact, sector_blocked)."""
@@ -94,8 +121,11 @@ class SpinModel:
         """The basis states, int64, made on demand (never stored):
         arange(2^L) for a full or embedded model; for a compact model the
         ascending sector, unranked on the card or enumerated on the host;
-        for a sector_blocked model the blocked order (sector_setup)."""
+        for a sector_blocked model the blocked order (sector_setup). Pad
+        rows of a padded model hold state 0."""
         self._flat_only("basis_states")
+        if self.padded:
+            return self._pad_rows(self.logical().basis_states(device))
         if self.mode == "compact":
             return _sector_states(self.L, self.nup, torch.device(device))
         if self.mode == "sector_blocked":
@@ -107,8 +137,16 @@ class SpinModel:
         for 'embedded' (the U(1) sector is an exact invariant subspace of H,
         so zeroing the complement once at state preparation keeps a whole
         computation in the sector); None for 'full', 'compact' and
-        'sector_blocked', where every row is logical."""
+        'sector_blocked', where every row is logical. A padded model's
+        mask also excludes its pad rows (index >= n_valid), as in the JAX
+        package; it covers every row of the padded model, whichever
+        process holds them."""
         self._flat_only("valid_mask")
+        if self.padded:
+            m = self.logical().valid_mask(device)
+            if m is None:
+                m = torch.ones(self.dim, dtype=torch.bool, device=device)
+            return self._pad_rows(m, False)
         if self.mode != "embedded":
             return None
         s = self.basis_states(device)
@@ -126,9 +164,12 @@ class SpinModel:
         buffer). The plain blocked apply, the ell and sector_blocked applies
         and the dense oracle read it, K3 does not. A compact or
         sector_blocked model's comes from sector_setup (the host build on
-        the CPU, the torch build elsewhere)."""
+        the CPU, the torch build elsewhere). Pad rows of a padded model have
+        diagonal 0."""
         self._flat_only("diag")
         dtype = self.dtype if dtype is None else dtype
+        if self.padded:
+            return self._pad_rows(self.logical().diag(device, dtype))
         if self.stores_states:
             return sector_setup(self, device, dtype, want_table=False)[1]
         s = self.basis_states(device)
@@ -186,6 +227,8 @@ def build_model(
     layout: str | None = None,
     kron_splits: tuple | None = None,
     build_neighbor_table: bool | None = None,
+    device_build: bool | None = None,
+    lean: bool | None = None,
 ) -> SpinModel:
     """Create a SpinModel: couplings + layout metadata, no N-sized arrays.
 
@@ -204,7 +247,13 @@ def build_model(
     JAX package's rule (ops/sector_blocked.default_lo_bits), applied by
     ops/sector_blocked.apply_H_sector_blocked on any device and dtype; a
     hopping bond across the lo/hi cut must be the nearest-neighbour one
-    (Ll-1, Ll), as in the JAX package."""
+    (Ll-1, Ll), as in the JAX package.
+
+    `device_build` and `lean` are the JAX package's switches and have no
+    effect here: the port's model is always lean (no N-sized array is
+    stored, the JAX package's `lean=True`), and what is N-sized is built on
+    the device that asks for it (the torch build on the card, numpy on the
+    CPU: the JAX package's `device_build` choice, made per call)."""
     if layout not in (None, "compact", "embedded", "full", "sector_blocked",
                       "sector_kron"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -409,10 +458,17 @@ def sector_setup(model: SpinModel, device, dtype: torch.dtype | None = None,
     _device_blocked_setup) on the card, the host numpy build
     (build_sector_basis or blocked_order_states, _compute_diag,
     _build_ell_table) on the CPU; the two give the same states and table,
-    bit for bit (and the same sector_blocked diagonal)."""
+    bit for bit (and the same sector_blocked diagonal). A padded model's
+    are the logical model's with the pad rows appended: state 0, diagonal
+    0, neighbours -1 (pad_model of the JAX package)."""
     if model.mode not in ("compact", "full", "sector_blocked"):
         raise ValueError("sector_setup builds the compact, sector_blocked "
                          f"and full layouts, not mode={model.mode!r}")
+    if model.padded:
+        states, diag, nbr = sector_setup(model.logical(), device, dtype,
+                                         want_table)
+        return (model._pad_rows(states), model._pad_rows(diag),
+                None if nbr is None else model._pad_rows(nbr, -1))
     device = torch.device(device)
     dtype = model.dtype if dtype is None else dtype
     if model.mode == "sector_blocked":

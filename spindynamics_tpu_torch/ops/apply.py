@@ -37,6 +37,17 @@ does not copy), and so does a model with more bonds than K3's lists hold
 The functional `apply_H` builds what its backend needs (K3's tables, the
 N-sized diagonal, the dense matrix) for that one apply; `FlatHamiltonian`
 builds them once and owns them as buffers.
+
+Row-sharded states (`mesh=`, or a model placed on a mesh by
+parallel/mesh.shard_model: the JAX package's "same code, sharded inputs")
+take the sharded applies of parallel/: a compact model (or a full one with
+a neighbour table) the halo-exchange ELL apply
+(sharded_apply.sharded_matvec_halo_fn), a full or embedded model the
+pairwise-exchange blocked apply (sharded_blocked), for backend None,
+'blocked' and 'tensor' alike: the two backends compute the same H, and the
+JAX package's SPMD form of each is derived from the same flips. Every
+other backend raises with a mesh, so no sharded state on the card falls
+back to an unsharded apply.
 """
 
 from __future__ import annotations
@@ -145,10 +156,16 @@ def apply_H_ell(psi: torch.Tensor, model: SpinModel,
         return out
     ext = torch.cat([psi, psi.new_zeros(1)])
     J = torch.as_tensor(model.hop_J, device=psi.device).to(psi.dtype)
-    for s0 in range(0, psi.shape[0], chunk):
-        rows = out[s0:s0 + chunk]
-        rows.addmv_(ext[nbr[s0:s0 + chunk]], J)
+    _ell_accumulate(out, ext, nbr, J, chunk)
     return out
+
+
+def _ell_accumulate(out, ext, nbr, J, chunk: int):
+    """out[r] += sum_b J_b ext[nbr[r, b]], `chunk` rows of the table at a
+    time: one gather of a [chunk, n_bonds] block and one addmv (the ell
+    apply's loop, and the sharded applies' of parallel/sharded_apply)."""
+    for s0 in range(0, nbr.shape[0], chunk):
+        out[s0:s0 + chunk].addmv_(ext[nbr[s0:s0 + chunk]], J)
 
 
 def _flat_backend(model: SpinModel, backend: str | None,
@@ -216,12 +233,20 @@ def apply_H_tensor(psi: torch.Tensor, model: SpinModel,
     return out
 
 
-def apply_H(psi: torch.Tensor, model: SpinModel, backend: str | None = None
-            ) -> torch.Tensor:
+def apply_H(psi: torch.Tensor, model: SpinModel, backend: str | None = None,
+            exact_J: bool | None = None) -> torch.Tensor:
     """H|psi> for a full, embedded, compact or sector_blocked model;
     dispatches by backend (see the module docstring). Every backend builds
     its tables for this one call: keep a FlatHamiltonian (matvec_fn) for
-    repeated applies."""
+    repeated applies. A model placed on a mesh (shard_model) applies to
+    the rows of this process's shards through the sharded apply.
+
+    `exact_J` is the JAX package's switch of its Pallas kernel's two-pass
+    bf16 dots; K3 has no such route (it sums in the state's precision), so
+    it has no effect here."""
+    if model.mesh is not None:
+        return FlatHamiltonian(model, backend, device=psi.device,
+                               dtype=real_dtype(psi.dtype))(psi)
     backend = _resolve_backend(psi, model, backend)
     if backend == "ell":
         return apply_H_ell(psi, model)
@@ -270,16 +295,27 @@ class FlatHamiltonian(nn.Module):
     states, with one K3 plan per element type (the default tile is 32 KB:
     2^13 float32, 2^12 complex64 amplitudes), its tables buffers `k3_*` and
     `k3c_*`; on a CPU state it runs K3's plain version, as the wrapper
-    does."""
+    does.
+
+    With `mesh` (default: the model's, set by shard_model) the module
+    applies H to the rows of this process's shards of a padded state
+    (module docstring): its `model` is the padded one, `sharded` the
+    sharded apply, `mesh` the mesh, and the solvers end their dots in the
+    mesh's all-reduce. `device` then defaults to the mesh's."""
 
     def __init__(self, model: SpinModel, backend: str | None = None,
-                 device=None, dtype: torch.dtype | None = None):
+                 device=None, dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         if model.mode not in FLAT_MODES:
             raise ValueError("FlatHamiltonian needs a full, embedded, "
                              "compact or sector_blocked model, not "
                              f"mode={model.mode!r}")
-        device = resolve_device(device)
+        self.mesh = model.mesh if mesh is None else mesh
+        self.sharded = None
+        device = resolve_device(device, mesh=self.mesh)
+        if self.mesh is not None:
+            self._init_sharded(model, backend, device, dtype)
+            return
         backend = _flat_backend(model, backend, device.type == "cuda")
         if (backend == "ell" and not model.neighbor_table
                 and model.n_bonds > 0):
@@ -327,6 +363,34 @@ class FlatHamiltonian(nn.Module):
                 "diag", model.diag(device, real_dtype(dtype or model.dtype)),
                 persistent=False)
 
+    def _init_sharded(self, model, backend, device, dtype):
+        """The mesh route: the halo ELL apply or the sharded blocked one."""
+        from ..parallel.mesh import shard_model
+        from ..parallel.sharded_apply import ShardedEllHamiltonian
+        from ..parallel.sharded_blocked import ShardedBlockedHamiltonian
+
+        model = shard_model(model, self.mesh)
+        ell = model.mode == "compact" or model.neighbor_table
+        takes = (("ell",) if ell else ("blocked", "tensor")
+                 if model.mode in ("full", "embedded") else ())
+        if not takes or backend not in (None,) + takes:
+            raise ValueError(
+                f"backend {backend!r} of a {model.mode} model has no sharded "
+                "form: with a mesh, compact models take 'ell' (the halo "
+                "apply), full and embedded ones 'blocked' or 'tensor' (the "
+                "sharded blocked apply)")
+        backend = backend or takes[0]
+        sharded = (ShardedEllHamiltonian(model, self.mesh, halo=True,
+                                         device=device, dtype=dtype) if ell
+                   else ShardedBlockedHamiltonian(model, self.mesh,
+                                                  device=device, dtype=dtype))
+        self.model, self.backend, self.sharded = model, backend, sharded
+        self.supports_axpy = False
+        self.plans = None
+        self._calls = {}
+        self.register_buffer("_anchor", torch.empty(0, device=device),
+                             persistent=False)
+
     def _apply(self, fn, recurse=True):
         self._calls = {}  # tensors move: rebuild the descriptors
         return super()._apply(fn, recurse)
@@ -336,6 +400,8 @@ class FlatHamiltonian(nn.Module):
         return self._anchor.device
 
     def forward(self, psi: torch.Tensor) -> torch.Tensor:
+        if self.sharded is not None:
+            return self.sharded(psi)
         if self.backend == "fused":
             c = psi.is_complex()
             call = self._calls.get(c)
@@ -362,10 +428,12 @@ class FlatHamiltonian(nn.Module):
         return apply_H_blocked(psi, self.model, self.blocked_plan, self.diag)
 
 
-def matvec_fn(model: SpinModel, backend: str | None = None, device=None
-              ) -> FlatHamiltonian:
+def matvec_fn(model: SpinModel, backend: str | None = None, device=None,
+              mesh=None) -> FlatHamiltonian:
     """The H apply of a full, embedded, compact or sector_blocked model
     for the solver layer: an nn.Module whose tables are buffers and whose
     backend is a field. `device` defaults to the card (pass device="cpu"
-    for a CPU module)."""
-    return FlatHamiltonian(model, backend=backend, device=device)
+    for a CPU module), or to `mesh`'s. With `mesh` (or a model placed on
+    one by shard_model) it is the sharded apply of the model padded to the
+    mesh (FlatHamiltonian)."""
+    return FlatHamiltonian(model, backend=backend, device=device, mesh=mesh)

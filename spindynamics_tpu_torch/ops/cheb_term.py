@@ -44,6 +44,7 @@ from .kron_group import (
     _state_type,
     _unsupported_terms,
     fused_group_set,
+    group_seed,
     kron_group_apply_reference,
 )
 from .sector_kron import SectorKronLayout, _lift, apply_H_sector_kron
@@ -128,17 +129,20 @@ def _combine(h, T, prev, acc, scal, out=None):
     """The term's epilogue on one group in torch, in the TPU kernel's
     operation order (pallas_cheb.py:165-178): x = (h - b T) * (2/a) - prev
     per plane; acc updated in place. Returns (x_re, x_im), written into
-    `out` when given (which may be prev). With bfloat16 T and prev, h is
-    float32 and so is x: acc takes the unrounded x, and the returned term
-    is x rounded once to bfloat16."""
+    `out` when given (which may be prev). T is the current term's pair
+    LIFTED to float32 by the caller (who lifted it for h already); prev
+    stays in the state dtype and is read as float32 by the subtraction's
+    type promotion, so no lift pass is made. With bfloat16 prev, h and x
+    are float32: acc takes the unrounded x, and the returned term is x
+    rounded once to bfloat16 (in the copy into `out` when given)."""
     a_inv, b, c_r, c_i = scal
     two_ai = 2.0 * a_inv
-    xr = (h[0] - b * _lift(T[0])) * two_ai - _lift(prev[0])
-    xi = (h[1] - b * _lift(T[1])) * two_ai - _lift(prev[1])
+    xr = (h[0] - b * T[0]) * two_ai - prev[0]
+    xi = (h[1] - b * T[1]) * two_ai - prev[1]
     acc[0].add_(c_r * xr).sub_(c_i * xi)
     acc[1].add_(c_i * xr).add_(c_r * xi)
     if out is None:
-        return xr.to(T[0].dtype), xi.to(T[1].dtype)
+        return xr.to(prev[0].dtype), xi.to(prev[1].dtype)
     out[0].copy_(xr)
     out[1].copy_(xi)
     return out
@@ -217,31 +221,26 @@ def cheb_term_apply_reference(T, prev, acc, seed, srcs, srcsh, call, scal,
     the epilogue. bfloat16 states are lifted to float32 (K1's sum is not
     rounded on the way), acc takes the unrounded x and the next term is
     rounded once."""
+    Tl = (_lift(T[0]), _lift(T[1]))
     h = tuple(kron_group_apply_reference(
-        _lift(T[p]), None if seed is None else _lift(seed[p]),
+        Tl[p], None if seed is None else _lift(seed[p]),
         [_lift(s[p]) for s in srcs], [_lift(s[p]) for s in srcsh], call)
         for p in (0, 1))
-    return _combine(h, T, prev, acc, scal, out)
+    return _combine(h, Tl, prev, acc, scal, out)
 
 
 def term_seed(blocks, layout, tables, call, extra):
     """The (re, im) seed of one fused group's K2 launch: the plain apply's
     `call.seed_terms` (W_hi, and the mid|hi terms when K2 does not fuse
     them) per plane, plus the group's unsupported lo|mid entries `extra`
-    ((re, im) or None). None when the group has neither. For bfloat16
-    blocks both parts are float32 and the sum is rounded once."""
-    gi = call.gi
-    sdt = blocks[0][gi].dtype
-    seed = None
-    if call.has_seed:
-        seed = tuple(apply_H_sector_kron(b, None, layout, tables,
-                                         terms=call.seed_terms,
-                                         group_filter=(gi,))[gi]
-                     for b in blocks)
-    if extra is not None:
-        seed = extra if seed is None else (seed[0] + extra[0],
-                                           seed[1] + extra[1])
-    return None if seed is None else (seed[0].to(sdt), seed[1].to(sdt))
+    ((re, im) or None), each plane rounded once to the state dtype by the
+    add that writes it (kron_group.group_seed). None when the group has
+    neither."""
+    sdt = blocks[0][call.gi].dtype
+    seed = tuple(group_seed(b, layout, tables, call,
+                            None if extra is None else e, sdt)
+                 for b, e in zip(blocks, extra or (None, None)))
+    return None if seed[0] is None else seed
 
 
 def term_launches(layout, tables, calls, fused, pair_prev, pair_curr, acc):
@@ -282,16 +281,18 @@ def cheb_term_fused(layout, tables, calls, fused, pair_prev, pair_curr, acc,
 
     nxt = [None] * len(layout.groups)
     if tail:
+        # each tail leaf (and cross source) of a bfloat16 pair is lifted
+        # once, for the apply and the combine alike
+        lifted = ({}, {})
         ht = [apply_H_sector_kron(list(p.leaves), None, layout, tables,
-                                  terms="all", group_filter=tail)
-              for p in pair_curr]
+                                  terms="all", group_filter=tail, lifted=lf)
+              for p, lf in zip(pair_curr, lifted)]
         for gi in sorted(tail):
             nxt[gi] = _combine(
-                (ht[0][gi], ht[1][gi]),
-                (pair_curr[0].leaves[gi], pair_curr[1].leaves[gi]),
+                (ht[0][gi], ht[1][gi]), (lifted[0][gi], lifted[1][gi]),
                 (pair_prev[0].leaves[gi], pair_prev[1].leaves[gi]),
                 (acc[0].leaves[gi], acc[1].leaves[gi]), scal, out(gi))
-        del ht
+        del ht, lifted
     for gi, args in term_launches(layout, tables, calls, fused, pair_prev,
                                   pair_curr, acc):
         nxt[gi] = cheb_term_apply(*args, scal, out(gi))

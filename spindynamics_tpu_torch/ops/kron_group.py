@@ -614,32 +614,31 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
     blocks = list(blocks)
     sdt = blocks[0].dtype
 
-    # tail groups (small): both term halves through the plain apply
+    # tail groups (small): both term halves through the plain apply, each
+    # tail leaf and cross source lifted once for both
     if tail:
+        lifted = {}
         hi_tail = apply_H_sector_kron(blocks, None, layout, tables,
-                                      terms="hi,crossh", group_filter=tail)
+                                      terms="hi,crossh", group_filter=tail,
+                                      lifted=lifted)
         tail_out = apply_H_sector_kron(blocks, None, layout, tables,
                                        terms="diag,lo,mid,crossl",
-                                       group_filter=tail)
+                                       group_filter=tail, lifted=lifted)
+        del lifted
     outs = []
     for gi in range(len(layout.groups)):
         if gi in tail:
-            t = tail_out[gi] + hi_tail[gi]
-            if axpy is not None:
-                t = t + axpy[0] * _lift(axpy[1][gi])
-            outs.append(t.to(sdt))
+            if axpy is None:
+                outs.append(round_sum(tail_out[gi], hi_tail[gi], sdt))
+            else:
+                outs.append(round_sum(tail_out[gi] + hi_tail[gi],
+                                      axpy[0] * _lift(axpy[1][gi]), sdt))
             continue
         call = calls[gi]
         # seed per group, so each is freed once its kernel has consumed it
-        seed = (apply_H_sector_kron(blocks, None, layout, tables,
-                                    terms=call.seed_terms,
-                                    group_filter=(gi,))[gi]
-                if call.has_seed else None)
-        if axpy is not None:
-            sg = axpy[0] * _lift(axpy[1][gi])
-            seed = sg if seed is None else seed + sg
-        if seed is not None:
-            seed = seed.to(sdt)
+        seed = group_seed(blocks, layout, tables, call,
+                          None if axpy is None
+                          else axpy[0] * _lift(axpy[1][gi]), sdt)
         outs.append(kron_group_apply(
             blocks[gi], seed, [blocks[c[0]] for c in call.cross],
             [blocks[c[0]] for c in call.crossh], call))
@@ -649,9 +648,44 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
     extra_calls = [calls[gi] for gi in sorted(fused) if calls[gi].unsupported]
     if extra_calls:
         extra = _unsupported_terms(blocks, layout, tables, extra_calls)
-        outs = [o if e is None else (_lift(o) + e).to(sdt)
+        outs = [o if e is None else round_sum(o, e, sdt)
                 for o, e in zip(outs, extra)]
     return outs
+
+
+def round_sum(a, b, dtype):
+    """a + b (b may be None) rounded once to `dtype`: the add writes the
+    `dtype` tensor itself. torch computes it in the inputs' promoted type
+    (a bfloat16 `a` beside a float32 `b` is read as float32) and rounds to
+    the output's, the same round-to-nearest as .to(dtype)."""
+    if b is None:
+        return a.to(dtype)
+    return torch.add(a, b, out=torch.empty_like(b, dtype=dtype))
+
+
+def group_seed(blocks, layout, tables, call, extra, sdt):
+    """The seed of one fused group's launch on one plane: the plain
+    apply's `call.seed_terms` (W_hi, and the mid|hi terms when the kernel
+    does not fuse them) plus `extra` (a float32 tensor, or None), rounded
+    once to `sdt`; None when the group has neither. The sums are float32
+    on lifted bfloat16 leaves.
+
+    A W_hi-only seed is the plain apply's 0 + T W_hi made in one product
+    and one add: the zero is added by that add (0 + x and x + 0 are the
+    same float) or, with `extra`, in place before the add of `extra`; the
+    last add writes the `sdt` seed."""
+    gi = call.gi
+    if not call.has_seed:
+        return None if extra is None else extra.to(sdt)
+    if call.seed_terms != "hi":
+        seed = apply_H_sector_kron(blocks, None, layout, tables,
+                                   terms=call.seed_terms,
+                                   group_filter=(gi,))[gi]
+        return round_sum(seed, extra, sdt)
+    X = _contract(_lift(blocks[gi]), tables["W"][2][layout.groups[gi][0]], 2)
+    if extra is None:
+        return torch.add(X, 0.0, out=torch.empty_like(X, dtype=sdt))
+    return round_sum(X.add_(0.0), extra, sdt)
 
 
 def _unsupported_terms(blocks, layout, tables, calls):
@@ -738,13 +772,15 @@ class KronHamiltonian(nn.Module):
     apply: the bucketed Ritz finalize of the ground-state solve asks for
     H psi a few groups at a time. `shard` and `to_mesh` are what the
     sharded module (parallel.ShardedKronHamiltonian) answers with its spec
-    and mesh: no sharding here."""
+    and mesh: no sharding here. `tables` (the plain apply's tables of
+    `layout` on `device`, ops/sector_kron.kron_tables) are taken as they
+    are instead of built."""
 
     shard = None  # the `shard=` argument of the BlockVec state constructors
 
     def __init__(self, layout: SectorKronLayout, dtype=torch.float32,
                  device=None, fused: bool = True, top_k: int | None = None,
-                 fuse_crossh: bool = True):
+                 fuse_crossh: bool = True, tables: dict | None = None):
         super().__init__()
         device = resolve_device(device)
         self.layout = layout
@@ -754,7 +790,8 @@ class KronHamiltonian(nn.Module):
         # the Lanczos solvers fold -beta v_prev into the apply when set
         self.supports_axpy = fused
         memo = {}
-        tree = {"tables": kron_tables(layout, dtype, device, memo),
+        tree = {"tables": (kron_tables(layout, dtype, device, memo)
+                           if tables is None else tables),
                 "groups": (fused_group_tables(layout, dtype, device, memo)
                            if fused else [])}
         self.register_buffer("_anchor", torch.empty(0, dtype=dtype,

@@ -676,7 +676,8 @@ def _sl(T, part, r0, ln):
 
 
 def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
-                        terms: str = "all", group_filter=None):
+                        terms: str = "all", group_filter=None,
+                        lifted: dict | None = None):
     """H|psi> on a LIST of per-group tensors [C_h, C_m_pad, C_l_pad] (blocks
     mode; the flat mode of the JAX package is not ported). Returns a list.
 
@@ -689,7 +690,10 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
 
     bfloat16 leaves are lifted group by group as they are read and the
     outputs are FLOAT32 (the JAX apply promotes against its float32 tables
-    the same way): the caller rounds, once, where it stores."""
+    the same way): the caller rounds, once, where it stores. Each leaf is
+    lifted once per call, for its own products and for every cross term
+    that reads it; `lifted` (a dict group -> lifted leaf) shares those
+    lifts with the caller's other uses of the same leaves."""
     if not isinstance(psi, (list, tuple)):
         raise TypeError("apply_H_sector_kron takes a list of per-group "
                         "tensors (blocks mode); use flat_to_blocks")
@@ -707,12 +711,20 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
            else _default_tables(layout, rdtype, G[0].device))
 
     gset = None if group_filter is None else frozenset(group_filter)
+    if lifted is None:
+        lifted = {}
+
+    def lift(g):
+        if g not in lifted:
+            lifted[g] = _lift(G[g])
+        return lifted[g]
+
     outs = []
     for gi, (k_h, k_m, k_l, ch, cm, cl, cmp, clp) in enumerate(layout.groups):
         if gset is not None and gi not in gset:
             outs.append(None)
             continue
-        T = _lift(G[gi])
+        T = lift(gi)
         kp = (k_l, k_m, k_h)
         acc = None
         if "diag" in want:
@@ -746,9 +758,14 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
                 continue
             runs_a = layout.cross_runs.get(a_key)
             runs_b = layout.cross_runs.get(b_key)
-            S = _lift(G[g_src])
             if runs_a is not None and runs_b is not None:
-                # both factors are block shifts on the mid/hi dims: slice adds
+                # both factors are block shifts on the mid/hi dims: slice
+                # adds, which read a bfloat16 source as float32 themselves
+                # (it is lifted only for a product by a value other than 1)
+                scaled = any(va * vb != 1.0 for (*_, va) in runs_a
+                             for (*_, vb) in runs_b)
+                S = (lift(g_src) if scaled or g_src in lifted
+                     else G[g_src])
                 for (ra0, ca0, lna, va) in runs_a:
                     for (rb0, cb0, lnb, vb) in runs_b:
                         X = _sl(_sl(S, pa, ra0, lna), pb, rb0, lnb)
@@ -759,6 +776,7 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
                         md_c, md_l = (cb0, lnb) if pa == 2 else (ca0, lna)
                         acc[hi_c:hi_c + hi_l, md_c:md_c + md_l].add_(X)
                 continue
+            S = lift(g_src)
             if runs_a is not None or runs_b is not None:
                 # one shift + one matmul: slice first, then contract
                 runs, pr = (runs_a, pa) if runs_a is not None else (runs_b, pb)

@@ -1,39 +1,47 @@
-"""The object a `mesh=` argument takes: D row shards of a kron state, held
-by one process or by the ranks of a process group (the port's counterpart
-of spindynamics_tpu/parallel/mesh.py and of the 1-D `jax.sharding.Mesh` the
-JAX package's sharded kron path runs on).
+"""The object a `mesh=` argument takes: D row shards of a kron state or of
+a flat state, held by one process or by the ranks of a process group (the
+port's counterpart of spindynamics_tpu/parallel/mesh.py and of the 1-D
+`jax.sharding.Mesh` the JAX package's sharded paths run on).
 
 JAX's mesh is a global view: one array, rows dealt to devices, collectives
 derived by the compiler. PyTorch has no such view, so the two forms below
 hold the shards explicitly, behind one interface:
 
   LocalMesh(D)     D shards in ONE process on ONE device. A sharded-form
-                   leaf is the whole padded tensor [D*b, cmp, clp]; shard d
-                   is the view of rows [d*b, (d+1)*b). Collectives are
-                   tensor operations. This is what runs a D-shard apply on
-                   one card (and the CPU tests): the per-shard kernels,
+                   leaf is the whole padded tensor [D*b, cmp, clp] (a flat
+                   state: the whole padded vector [D*B]); shard d is the
+                   view of rows [d*b, (d+1)*b). Collectives are tensor
+                   operations. This is what runs a D-shard apply on one
+                   card (and the CPU tests): the per-shard kernels,
                    windows and seeds are the multi-GPU run's own.
   ProcessMesh()    one shard per rank of a torch.distributed process group
                    (NCCL between cards, gloo on the CPU). A leaf is the
-                   rank's [b, cmp, clp] block.
+                   rank's [b, cmp, clp] block (a flat state: its B rows).
 
 Both hold a leaf as "the rows of my shards, in shard order": local shard i
 (global index `local_shards[i]`) is rows [i*b, (i+1)*b) of the leaf, and
 `row_slice(b)` says which rows of the padded global hi axis [D*b] those
 are. Code written against that runs unchanged on either mesh.
 
-Every collective counts its calls and bytes (`counters()`), so a test can
-hold an apply to `collective_traffic_model`.
+The kron path's collectives are the reduce-scatter of partials, the
+window exchange and the all-reduce of dots; the flat path's (the JAX
+package's shard_map applies) are `all_gather_rows` (JAX's
+`all_gather(..., tiled=True)`) and `permute_rows` (JAX's `ppermute` by a
+(src, dst) list). Every collective counts its calls and bytes
+(`counters()`: the bytes the shards of this process receive), so a test
+can hold an apply to `collective_traffic_model` or to the halo plan.
 
-The flat ELL path's `shard_model` / `shard_state` are not ported (the
-compact layout is not).
+`shard_state` and `shard_model` (the JAX names) put a flat state and a
+flat model on a mesh: zero pad rows up to a multiple of D, then this
+process's rows; the model keeps its logical size in `n_valid`.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ROWS", "LocalMesh", "ProcessMesh"]
+__all__ = ["ROWS", "LocalMesh", "ProcessMesh", "shard_state",
+           "shard_model"]
 
 ROWS = "rows"  # the JAX package's mesh axis name, kept for signatures
 
@@ -98,12 +106,23 @@ class _Mesh:
         self.window_bytes_remote = 0    # of those, received from other ranks
         self.n_all_reduce = 0
         self.all_reduce_bytes = 0
+        self.n_all_gather = 0
+        self.all_gather_bytes = 0       # rows received from other shards
+        self.n_permute = 0
+        self.permute_bytes = 0          # rows received from other shards
 
     def counters(self) -> dict:
         return {k: getattr(self, k) for k in (
             "n_reduce_scatter", "reduce_scatter_bytes", "n_window_exchange",
             "window_bytes", "window_bytes_remote", "n_all_reduce",
-            "all_reduce_bytes")}
+            "all_reduce_bytes", "n_all_gather", "all_gather_bytes",
+            "n_permute", "permute_bytes")}
+
+    def shard_state(self, psi, axis_name: str = None):
+        return shard_state(psi, self)
+
+    def shard_model(self, model, axis_name: str = None):
+        return shard_model(model, self)
 
     @property
     def n_local(self) -> int:
@@ -163,6 +182,36 @@ class LocalMesh(_Mesh):
         self.n_all_reduce += 1
         self.all_reduce_bytes += x.numel() * x.element_size()
         return x
+
+    def all_gather_rows(self, x):
+        """Every shard's rows to every shard (JAX's tiled all_gather): the
+        whole [D*b, ...] tensor is already here. Counts the D*(D-1) blocks
+        of b rows each shard would receive."""
+        self.n_all_gather += 1
+        self.all_gather_bytes += (self.D - 1) * x.numel() * x.element_size()
+        return x
+
+    def permute_rows(self, x, perm):
+        """JAX's ppermute: shard s's block of x [D*b, ...] becomes shard
+        d's for each (s, d) in `perm`; a shard that receives nothing gets
+        zeros. One gather of the blocks."""
+        D = self.D
+        b = x.shape[0] // D
+        src = [None] * D
+        for s, d in perm:
+            src[d] = s
+        blocks = x.reshape((D, b) + tuple(x.shape[1:]))
+        if None in src:
+            out = torch.zeros_like(blocks)
+            for d, s in enumerate(src):
+                if s is not None:
+                    out[d] = blocks[s]
+        else:
+            out = blocks[torch.tensor(src, device=x.device)]
+        self.n_permute += 1
+        row_bytes = b * x[0].numel() * x.element_size()
+        self.permute_bytes += row_bytes * sum(1 for s, d in perm if s != d)
+        return out.reshape(x.shape)
 
 
 class ProcessMesh(_Mesh):
@@ -252,7 +301,81 @@ class ProcessMesh(_Mesh):
         import torch.distributed as dist
 
         x = x.clone()
-        dist.all_reduce(x, group=self.group)
+        dist.all_reduce(_real(x), group=self.group)
         self.n_all_reduce += 1
         self.all_reduce_bytes += x.numel() * x.element_size()
         return x
+
+    def all_gather_rows(self, x):
+        """This rank's rows [b, ...] gathered from every rank into the
+        whole [D*b, ...] (all_gather_into_tensor)."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        out = x.new_empty((self.D * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(_real(out), _real(x), group=self.group)
+        self.n_all_gather += 1
+        self.all_gather_bytes += (self.D - 1) * x.numel() * x.element_size()
+        return out
+
+    def permute_rows(self, x, perm):
+        """JAX's ppermute: this rank's block x [b, ...] goes to d for its
+        (rank, d) in `perm`, and the block of s for (s, rank) comes back
+        (zeros when none does); batched isend/irecv."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        ops = []
+        for s, d in perm:
+            if s == self.rank and d == self.rank:
+                out.copy_(x)
+            elif s == self.rank:
+                ops.append(dist.P2POp(dist.isend, _real(x),
+                                      self._global_rank(d), group=self.group))
+            elif d == self.rank:
+                ops.append(dist.P2POp(dist.irecv, _real(out),
+                                      self._global_rank(s), group=self.group))
+                self.permute_bytes += x.numel() * x.element_size()
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        self.n_permute += 1
+        return out
+
+
+def _real(x):
+    """A complex tensor as its real view (what every backend moves)."""
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def shard_state(psi, mesh, axis_name: str = ROWS):
+    """Row-partition a flat state over `mesh` (JAX's shard_state): the last
+    axis (the rows; a [2, N] plane pair shards each plane) zero-padded to a
+    multiple of D, then this process's rows: the whole padded tensor on a
+    LocalMesh (moved to the mesh's device when it names one), the rank's B
+    rows on a ProcessMesh (on psi's device). `axis_name` is the JAX
+    package's; the port's meshes have one axis."""
+    from .sharded_apply import pad_state
+
+    psi = pad_state(psi, mesh.D)
+    rows = mesh.row_slice(psi.shape[-1] // mesh.D)
+    if rows.stop - rows.start != psi.shape[-1]:
+        psi = psi[..., rows].clone()  # the rank's part alone stays alive
+    dev = getattr(mesh, "device", None)
+    return psi if dev is None else psi.to(dev)
+
+
+def shard_model(model, mesh, axis_name: str = ROWS):
+    """A flat model placed on `mesh` (JAX's shard_model): padded to a
+    multiple of D (sharded_apply.pad_model: pad rows have state 0,
+    diagonal 0 and neighbours -1, `n_valid` keeps the logical size) and
+    tagged with the mesh, so that matvec_fn, the solvers and the
+    observables run it row-sharded. The port's model holds no N-sized
+    array, so nothing is placed here: each module that applies it builds
+    the rows of its process."""
+    import dataclasses
+
+    from .sharded_apply import pad_model
+
+    return dataclasses.replace(pad_model(model, mesh.D), mesh=mesh)

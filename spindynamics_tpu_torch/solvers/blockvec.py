@@ -128,7 +128,7 @@ def _shard_rows(x, gi, shard):
 
 
 def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
-              device=None, shard=None) -> BlockVec:
+              device=None, shard=None, masked: bool = True) -> BlockVec:
     """Random normal BlockVec over a SectorKronLayout, zero in tile-pad slots
     (the pad slots are an invariant null subspace of the apply, so zeroing
     them once keeps them exactly zero). The numbers are drawn on the
@@ -138,7 +138,8 @@ def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
     rounded. `shard=(spec, mesh)` returns the sharded form of the same
     draw on that mesh: each group is drawn whole, in the unsharded order,
     and cut to this process's rows before it is moved, so every rank of a
-    ProcessMesh draws the same state and keeps its part."""
+    ProcessMesh draws the same state and keeps its part. masked=False (the
+    JAX package's) leaves the random draws in the tile-pad slots."""
     device = resolve_device(device)
     draw = torch.float32 if dtype == torch.bfloat16 else dtype
     leaves = []
@@ -148,7 +149,7 @@ def bv_random(layout, generator: torch.Generator, dtype=torch.float32,
             torch.randn((ch, cmp, clp), generator=generator, dtype=draw,
                         device=generator.device), gi, shard
         ).to(device=device, dtype=dtype)
-        if cmp != cm or clp != cl:
+        if masked and (cmp != cm or clp != cl):
             x[:, cm:, :] = 0
             x[:, :, cl:] = 0
         leaves.append(x)

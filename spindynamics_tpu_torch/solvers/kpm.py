@@ -130,12 +130,20 @@ def kpm_correlation_matrix(psi, omega, model: SpinModel, n: int = 300,
                            kernel: str = "jackson",
                            backend: str | None = None,
                            generator: torch.Generator | None = None,
-                           matvec=None) -> torch.Tensor:
+                           matvec=None, chunk_B: int | None = None
+                           ) -> torch.Tensor:
     """C[i, j, omega] = |S_{A_i B_j}(omega)| for all L x L site pairs (ref
     src/TimeEvolution/KPM.jl:214-235), shared (a, b). One recurrence per B
     site; the moments against every A site come from each iterate at once.
     For the diagonal opA_kind='z' the A-operator stack is never made:
-    mu_i = Re(conj(psi) v) . sz_i, through a chunked [N, L] Sz product."""
+    mu_i = Re(conj(psi) v) . sz_i, through a chunked [N, L] Sz product.
+
+    `chunk_B` is the JAX package's batch of B sites run as one stacked
+    recurrence (memory chunk_B x N); it changes the memory, not the
+    result. The port always runs one B site at a time (the memory of
+    chunk_B = 1), so any chunk_B >= 1 gives this same result."""
+    if chunk_B is not None and int(chunk_B) < 1:
+        raise ValueError(f"chunk_B must be >= 1, got {chunk_B}")
     from ..observables import _row_states, _sz_columns
 
     if matvec is None:

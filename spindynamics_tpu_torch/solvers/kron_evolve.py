@@ -103,34 +103,46 @@ class KronPlanes(nn.Module):
         return self.H(pair[0]), self.H(pair[1])
 
 
-def kron_planes_matvec_fn(layout: SectorKronLayout, fused: bool = True,
-                          dtype=torch.float32, device=None,
-                          cheb_fused: bool | None = None,
+def kron_planes_matvec_fn(layout: SectorKronLayout, tables=None,
+                          fused: bool = True, dtype=torch.float32,
+                          device=None, cheb_fused: bool | None = None,
                           cheb_top_k: int | None = None) -> KronPlanes:
     """The planes module over a new KronHamiltonian of `layout`, on
-    `device` (default: the card; pass device="cpu" for a CPU run)."""
-    H = KronHamiltonian(layout, dtype=dtype, device=device, fused=fused)
+    `device` (default: the card; pass device="cpu" for a CPU run).
+    `tables` (the JAX package's argument) are the plain apply's tables of
+    the layout, already built (ops/sector_kron.kron_tables, e.g. another
+    module's `.tables`); None builds them."""
+    H = KronHamiltonian(layout, dtype=dtype, device=device, fused=fused,
+                        tables=tables)
     return KronPlanes(H, cheb_fused=cheb_fused, cheb_top_k=cheb_top_k)
 
 
 def _bv_vdot(x: BlockVec, y: BlockVec):
     """Compensated sum of per-leaf real dots (f32 at N ~ 1e8 needs it);
-    bfloat16 leaves are read as float32. Sharded states: summed over the
-    mesh's processes."""
+    bfloat16 leaves are read as float32, each lifted once (x is y: once
+    for both sides). Sharded states: summed over the mesh's processes."""
     def _d(a, b):
-        if a.dtype == torch.bfloat16:
-            a, b = a.float(), b.float()
-        return vdot2(a, b)
+        la = _lift(a)
+        return vdot2(la, la if b is a else _lift(b))
 
     return bv_reduce(sum(_d(a, b) for a, b in zip(x.leaves, y.leaves)),
                      x, y)
 
 
 def pair_dot(x, y):
-    """(Re<x|y>, Im<x|y>) of (re, im) BlockVec pairs, as 0-d tensors."""
-    re = _bv_vdot(x[0], y[0]) + _bv_vdot(x[1], y[1])
-    im = _bv_vdot(x[0], y[1]) - _bv_vdot(x[1], y[0])
-    return re, im
+    """(Re<x|y>, Im<x|y>) of (re, im) BlockVec pairs, as 0-d tensors.
+    The four dots are summed leaf by leaf in the order of four separate
+    _bv_vdot sums, and each bfloat16 leaf is lifted once for the two
+    dots that read it."""
+    sums = [0, 0, 0, 0]  # <x0|y0>, <x1|y1>, <x0|y1>, <x1|y0>
+    for x0, x1, y0, y1 in zip(x[0].leaves, x[1].leaves, y[0].leaves,
+                              y[1].leaves):
+        x0, x1, y0, y1 = _lift(x0), _lift(x1), _lift(y0), _lift(y1)
+        for i, (a, b) in enumerate(((x0, y0), (x1, y1), (x0, y1),
+                                    (x1, y0))):
+            sums[i] = sums[i] + vdot2(a, b)
+    d00, d11, d01, d10 = (bv_reduce(t, x[0], y[0]) for t in sums)
+    return d00 + d11, d01 - d10
 
 
 def pair_norm2(x):
@@ -182,32 +194,44 @@ def _acc_add_(acc, x, c):
     """acc += c x for the (re, im) pairs, in place, leaf by leaf, in the
     JAX package's order: acc_re + c_r x_re - c_i x_im and
     acc_im + c_i x_re + c_r x_im. Leaf by leaf, the temporaries are one
-    group large, not one state; bfloat16 x leaves are lifted there, so the
-    float32 accumulator never sees a rounded product."""
+    group large, not one state. c is (c_r, c_i) as one-element float32
+    tensors: a bfloat16 x leaf times one is computed in float32 (type
+    promotion reads the leaf as float32 in the product itself), so the
+    float32 accumulator never sees a rounded product and no lift pass is
+    made."""
     cr, ci = c
     for ar, ai, xr, xi in zip(acc[0].leaves, acc[1].leaves, x[0].leaves,
                               x[1].leaves):
-        xr, xi = _lift(xr), _lift(xi)
         ar.add_(xr * cr).sub_(xi * ci)
         ai.add_(xr * ci).add_(xi * cr)
 
 
 def _plain_term(planes, p_prev, p_curr, acc, c, ab):
     """One term k >= 2 of the plain recurrence (kron_evolve.py:190-200):
-    returns p_next; acc is updated in place. Combines run in float32 on
-    lifted leaves and store in the state dtype where the JAX scan does
-    (the shifted apply, then p_next): identities for float32 states."""
+    returns p_next; acc is updated in place. The shifted apply
+    (h - b x) a_inv is computed in float32 and stored in the state dtype by
+    its last product; p_next = 2 t - p_prev is then computed in the state
+    dtype, which for bfloat16 is float32 arithmetic rounded once (2 t is
+    exact): the JAX scan's roundings, with no lift or cast pass. b is a
+    one-element float32 tensor (so b x is float32 for a bfloat16 x);
+    identities for float32 states."""
     a_inv, b = ab
     sdt = p_curr[0].dtype
     nr, ni = planes(p_curr)
     p_next = tuple(
-        P.like([(_lift(((_lift(h) - b * _lift(x)) * a_inv).to(sdt)) * 2.0
-                 - _lift(pv)).to(sdt)
+        P.like([_shifted(h, x, b, a_inv, sdt) * 2.0 - pv
                 for h, x, pv in zip(H.leaves, P.leaves, V.leaves)])
         for H, P, V in ((nr, p_curr[0], p_prev[0]),
                         (ni, p_curr[1], p_prev[1])))
     _acc_add_(acc, p_next, c)
     return p_next
+
+
+def _shifted(h, x, b, a_inv, sdt):
+    """(h - b x) a_inv in float32 (h and x read as float32 by promotion
+    against the float32 b x), stored in `sdt` by the product itself."""
+    y = h - x * b
+    return torch.mul(y, a_inv, out=torch.empty_like(y, dtype=sdt))
 
 
 def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
@@ -223,32 +247,45 @@ def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
 
     The pair may be bfloat16: every term is stored in the state dtype (the
     bfloat16 instances of K1 and K2 when fused), every combine and the
-    accumulator run in float32 on leaves lifted one group at a time (no
-    state-sized float32 copy of a bfloat16 pair is ever held), and the
-    accumulator is rounded once, at the end of the step. For float32 and
-    float64 states every lift and cast is an identity."""
+    accumulator run in float32, a bfloat16 leaf read as float32 by type
+    promotion inside the operation that reads it (no lift pass, and no
+    state-sized float32 copy of a bfloat16 pair is ever held), each stored
+    term is rounded by the operation that writes it, and the accumulator
+    is rounded once, at the end of the step."""
     a_inv, b = ab
     sdt = pair[0].dtype
+    dev = pair[0].device
     c = [(float(r), float(i)) for r, i in np.asarray(coeffs_ri, np.float32)]
+    # b and the coefficients (float32 values) as one-element float32
+    # tensors: a product with a bfloat16 leaf promotes the leaf to float32
+    # in the product itself, where a host float would keep a bfloat16
+    # product; with float32 and float64 leaves they act as the host floats
+    b_t = torch.tensor([b], dtype=torch.float32, device=dev)
+    c_t = torch.tensor(np.asarray(coeffs_ri, np.float32), device=dev)
+
+    def coef(k):
+        return c_t[k, 0:1], c_t[k, 1:2]
 
     def mvr(p):
         hr, hi = planes(p)
-        return tuple(P.like([((_lift(h) - b * _lift(x)) * a_inv).to(sdt)
+        return tuple(P.like([_shifted(h, x, b_t, a_inv, sdt)
                              for h, x in zip(H.leaves, P.leaves)])
                      for H, P in ((hr, p[0]), (hi, p[1])))
 
     def f32(x):
-        return x.to(torch.float32)
+        # the accumulator is float32: a float64 leaf is rounded to it
+        # first, a bfloat16 one is read as float32 by the product
+        return x if x.dtype == torch.bfloat16 else x.to(torch.float32)
 
     phi_prev = pair
-    c0r, c0i = c[0]
+    c0r, c0i = coef(0)
     pr, pi = phi_prev[0].leaves, phi_prev[1].leaves
     acc = (pair[0].like([f32(r) * c0r - f32(i) * c0i
                          for r, i in zip(pr, pi)]),
            pair[0].like([f32(r) * c0i + f32(i) * c0r
                          for r, i in zip(pr, pi)]))
     phi_curr = mvr(phi_prev)
-    _acc_add_(acc, phi_curr, c[1])
+    _acc_add_(acc, phi_curr, coef(1))
     if n > 2:
         if planes.cheb_fused:
             from ..ops.cheb_term import cheb_scan_terms_fused
@@ -261,8 +298,9 @@ def _cheb_kron_scan(planes: KronPlanes, pair, coeffs_ri, ab, n: int):
         else:
             p_prev, p_curr = phi_prev, phi_curr
             del phi_curr  # the loop holds the only reference
-            for ck in c[2:]:
-                p_next = _plain_term(planes, p_prev, p_curr, acc, ck, ab)
+            for k in range(2, n):
+                p_next = _plain_term(planes, p_prev, p_curr, acc, coef(k),
+                                     (a_inv, b_t))
                 p_prev, p_curr = p_curr, p_next
     return acc[0].astype(sdt), acc[1].astype(sdt)
 

@@ -17,6 +17,13 @@ with no atomics).
 Random starts are real float32 by default on every device (H is real
 symmetric, so a real start spans the same Krylov information); the JAX
 package's backend-dependent default dtype is not ported.
+
+Row-sharded flat states: a matvec with a `mesh` (FlatHamiltonian over a
+LocalMesh or a ProcessMesh) takes and gives the rows of this process's
+shards. On a LocalMesh those are the whole padded vector and nothing
+changes; on a ProcessMesh every flat dot, norm and projection ends in the
+mesh's all-reduce (`_spread`), as BlockVec dots do (bv_reduce), and a
+random start is drawn whole, masked, and cut to this rank's rows.
 """
 
 from __future__ import annotations
@@ -52,10 +59,23 @@ class LanczosFactorization(NamedTuple):
     basis: torch.Tensor | BlockVec | None = None
 
 
-def _inner_c(x, y, compensated: bool):
+def _flat_mesh(matvec):
+    """The mesh of a flat sharded matvec (FlatHamiltonian(mesh=)), or
+    None."""
+    return getattr(matvec, "mesh", None)
+
+
+def _spread(mesh) -> bool:
+    """True when a flat state's rows are spread over processes (a
+    ProcessMesh of more than one rank): its dots need the all-reduce."""
+    return mesh is not None and mesh.n_local < mesh.D
+
+
+def _inner_c(x, y, compensated: bool, mesh=None):
     """Sesquilinear <x|y>, leaf by leaf for BlockVec states. bfloat16
     leaves are read as float32: neither a Dekker split nor an N-term sum
-    works at 8 mantissa bits."""
+    works at 8 mantissa bits. A flat state sharded over the processes of
+    `mesh` sums its rows, then over the mesh."""
     if isinstance(x, BlockVec):
         return bv_reduce(sum(_inner_c(a, b, compensated)
                              for a, b in zip(x.leaves, y.leaves)), x, y)
@@ -64,11 +84,13 @@ def _inner_c(x, y, compensated: bool):
     if compensated:
         from ..utils.compensated import vdot2
 
-        return vdot2(x, y)
-    if x.is_complex() or y.is_complex():
+        v = vdot2(x, y)
+    elif x.is_complex() or y.is_complex():
         cd = torch.promote_types(x.dtype, y.dtype)
-        return torch.vdot(x.reshape(-1).to(cd), y.reshape(-1).to(cd))
-    return torch.dot(x.reshape(-1), y.reshape(-1))
+        v = torch.vdot(x.reshape(-1).to(cd), y.reshape(-1).to(cd))
+    else:
+        v = torch.dot(x.reshape(-1), y.reshape(-1))
+    return mesh.all_reduce_sum(v) if _spread(mesh) else v
 
 
 def _re(z):
@@ -76,10 +98,13 @@ def _re(z):
     return z.real if z.is_complex() else z
 
 
-def _norm_c(x, compensated: bool):
+def _norm_c(x, compensated: bool, mesh=None):
     if isinstance(x, BlockVec):
         s = bv_reduce(sum(_inner_c(a, a, compensated) for a in x.leaves), x)
         return torch.sqrt(torch.clamp(s, min=0))
+    if _spread(mesh):
+        return torch.sqrt(torch.clamp(
+            _re(_inner_c(x, x, compensated, mesh)), min=0))
     if compensated:
         from ..utils.compensated import norm2
 
@@ -93,10 +118,11 @@ def _default_compensated(dtype) -> bool:
     return torch.finfo(real_dtype(dtype)).bits <= 32
 
 
-def _project_out(V, w, j: int):
+def _project_out(V, w, j: int, mesh=None):
     """w minus its components along the stored V[0..j] (two products). A
     BlockVec basis is a list of stacked leaves [m, ...]: the coefficients
-    sum over the leaves (and over the mesh of a sharded state)."""
+    sum over the leaves (and over the mesh of a sharded state), a flat
+    one's over `mesh` when its rows are spread."""
     if isinstance(w, BlockVec):
         coeffs = bv_reduce(sum(
             torch.tensordot(Vl[: j + 1].conj(), wl, dims=wl.ndim)
@@ -105,7 +131,9 @@ def _project_out(V, w, j: int):
                                             dims=1)
                        for wl, Vl in zip(w.leaves, V)])
     Vj = V[: j + 1]
-    return w - Vj.T @ (Vj.conj() @ w)
+    coeffs = Vj.conj() @ w
+    return w - Vj.T @ (mesh.all_reduce_sum(coeffs) if _spread(mesh)
+                       else coeffs)
 
 
 def _store(V, j: int, v):
@@ -133,10 +161,11 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
     -beta_{j-1} v_{j-1} is folded into the apply's kernel seed, and alpha =
     <v_j|w> then carries -beta <v_j|v_{j-1}> (identical up to the f32
     orthogonality floor, the standard Lanczos form). Both passes take the
-    same branch."""
+    same branch. A flat state's dots go over `matvec`'s mesh (_spread)."""
     dtype = v1.dtype
     rdtype = real_dtype(dtype)
     dev = v1.device
+    mesh = _flat_mesh(matvec)
     tol = torch.tensor(tol, dtype=rdtype, device=dev)
     tiny = torch.finfo(rdtype).tiny
     zero = torch.zeros((), dtype=rdtype, device=dev)
@@ -171,15 +200,15 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
     for j in range(m):
         if axpy_ok:
             w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _re(_inner_c(v_curr, w, compensated))
+            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
             w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _re(_inner_c(v_curr, w, compensated))
+            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
             w = w - alpha * v_curr - beta_prev * v_prev
         if full_reorth:
-            w = _project_out(V, w, j)
-        beta = _norm_c(w, compensated)
+            w = _project_out(V, w, j, mesh)
+        beta = _norm_c(w, compensated, mesh)
 
         if selective:
             al, be, bp = npdt(float(alpha)), npdt(float(beta)), npdt(
@@ -200,9 +229,9 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
                                npdt(0)).astype(npdt)
             om_next[j] = eps  # against v_j: locally orthogonal
             if om_next.max() > sqrt_eps:
-                w = _project_out(V, w, j)
+                w = _project_out(V, w, j, mesh)
                 om_next = np.where(idx <= j, eps, npdt(0)).astype(npdt)
-                beta = _norm_c(w, compensated)
+                beta = _norm_c(w, compensated, mesh)
                 # later omega steps couple through b_hist[j]: keep the
                 # post-sweep beta there
                 b_hist[j] = npdt(float(beta))
@@ -227,10 +256,10 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
             V if store_basis else None)
 
 
-def _normalize_start(v0, donate: bool = False):
+def _normalize_start(v0, donate: bool = False, mesh=None):
     """(v0 / ||v0||, ||v0||). donate=True scales v0 (its leaves) in place
     (the JAX package donates the buffer; the caller must not reuse v0)."""
-    nrm = _norm_c(v0, False)
+    nrm = _norm_c(v0, False, mesh)
     inv = 1.0 / nrm
     if donate:
         for l in (v0.leaves if isinstance(v0, BlockVec) else (v0,)):
@@ -246,7 +275,7 @@ def lanczos_iteration(matvec: Callable, v0, m: int, tol: float = 1e-12,
     """Lanczos tridiagonalization from v0 (need not be normalized; its norm
     is returned). reorth: False | True (full, every step) | "selective".
     compensated=None resolves by dtype (True in f32)."""
-    v1, v0_norm = _normalize_start(v0)
+    v1, v0_norm = _normalize_start(v0, mesh=_flat_mesh(matvec))
     if compensated is None:
         compensated = _default_compensated(v1.dtype)
     alphas, betas, active, V = _lanczos_scan(matvec, v1, m, tol, compensated,
@@ -298,10 +327,12 @@ def _twopass(matvec, v1, lanc_m: int, tol, compensated: bool):
 
 def _random_start(N: int, dtype=torch.float32,
                   generator: torch.Generator | None = None, mask=None,
-                  device=None):
+                  device=None, mesh=None):
     """Random normal start vector on `device` (default: the generator's,
     else the card); `mask` (bool [N]) zeroes the rows outside an embedded
-    sector, so they are never excited. The default generator is seed 0."""
+    sector (and a padded model's pad rows), so they are never excited. The
+    default generator is seed 0. With a `mesh` whose rows are spread over
+    processes, every rank draws the whole [N] start and keeps its rows."""
     from ..utils.device import resolve_device
 
     device = resolve_device(
@@ -312,6 +343,8 @@ def _random_start(N: int, dtype=torch.float32,
                     device=generator.device).to(device)
     if mask is not None:
         v = torch.where(mask.to(device), v, torch.zeros_like(v))
+    if _spread(mesh):
+        v = v[mesh.row_slice(N // mesh.D)].clone()
     return v
 
 
@@ -325,7 +358,8 @@ def lanczos_extremal(matvec, N: int, lanc_m: int = 100, tol: float = 1e-12,
     if v0 is None:
         if device is None:
             device = getattr(matvec, "device", None)
-        v0 = _random_start(N, dtype, generator, mask, device)
+        v0 = _random_start(N, dtype, generator, mask, device,
+                           _flat_mesh(matvec))
     fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol)
     evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
     return float(evals.min()), float(evals.max())
@@ -352,7 +386,8 @@ def _start_vector(matvec, N, dtype, generator, mask, v0, device):
         return v0
     if device is None:
         device = getattr(matvec, "device", None)
-    return _random_start(N, dtype, generator, mask, device)
+    return _random_start(N, dtype, generator, mask, device,
+                         _flat_mesh(matvec))
 
 
 def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
@@ -367,7 +402,10 @@ def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
     per-group leaves, the projections as per-leaf tensordots). Returns (E0,
     psi, info with residual). reorth: "full" | "selective" | False. Memory
     is O(lanc_m N): use the restarted or two-pass solvers when the basis
-    does not fit."""
+    does not fit. A sharded flat matvec (FlatHamiltonian with a mesh)
+    takes N = the padded length and mask = the padded model's valid_mask()
+    (which zeroes its pad rows), and returns psi as the rows of this
+    process's shards."""
     v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
     if reorth is True:
         reorth = "full"
@@ -385,9 +423,10 @@ def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
         psi = V.map(lambda l: torch.tensordot(yt.to(l.dtype), l, dims=1))
     else:
         psi = yt.to(V.dtype) @ V
-    nrm = _norm_c(psi, False)
+    mesh = _flat_mesh(matvec)
+    nrm = _norm_c(psi, False, mesh)
     psi = psi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
-    residual = float(_norm_c(matvec(psi) - psi * E0, False))
+    residual = float(_norm_c(matvec(psi) - psi * E0, False, mesh))
     return E0, psi, {"residual": residual, "m_eff": k, "evals": evals}
 
 
@@ -404,7 +443,7 @@ def lanczos_groundstate_twopass(matvec, N: int, lanc_m: int = 100,
     v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
     if compensated is None:
         compensated = _default_compensated(v0.dtype)
-    v1, _ = _normalize_start(v0, donate=True)
+    v1, _ = _normalize_start(v0, donate=True, mesh=_flat_mesh(matvec))
     del v0
     E0, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
     psi, _, residual = _ritz_finalize(matvec, psi)
@@ -421,7 +460,7 @@ def restart_cycle(matvec, psi, lanc_m: int, tol: float = 1e-12,
     (runners.groundstate_kron passes the bucketed variant)."""
     if compensated is None:
         compensated = _default_compensated(psi.dtype)
-    v1, _ = _normalize_start(psi, donate=True)
+    v1, _ = _normalize_start(psi, donate=True, mesh=_flat_mesh(matvec))
     del psi
     E_ritz, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
     del E_ritz
@@ -501,6 +540,7 @@ def _chebyshev_filter(matvec, psi, lo_cut: float, hi: float, degree: int):
     [lo_cut, hi] -> [-1, 1] (single-vector Chebyshev-filtered subspace
     iteration; needs no orthogonality). Renormalizes the pair each step."""
     dtype, dev = real_dtype(psi.dtype), psi.device
+    mesh = _flat_mesh(matvec)
     c = torch.tensor((hi + lo_cut) / 2.0, dtype=dtype, device=dev)
     h = torch.tensor((hi - lo_cut) / 2.0, dtype=dtype, device=dev)
     tiny = torch.finfo(dtype).tiny
@@ -512,7 +552,7 @@ def _chebyshev_filter(matvec, psi, lo_cut: float, hi: float, degree: int):
     t_curr = hmap(psi)
     for _ in range(max(degree - 1, 0)):
         t_next = 2.0 * hmap(t_curr) - t_prev
-        inv = 1.0 / torch.clamp(_norm_c(t_next, False), min=tiny)
+        inv = 1.0 / torch.clamp(_norm_c(t_next, False, mesh), min=tiny)
         t_prev, t_curr = t_curr * inv, t_next * inv
     return t_curr
 
@@ -522,11 +562,12 @@ def _ritz_finalize(matvec, psi_unnorm, compensated: bool = True):
     E uses the compensated dot: a naive f32 Rayleigh quotient error is the
     residual floor."""
     tiny = torch.finfo(real_dtype(psi_unnorm.dtype)).tiny
-    nrm = _norm_c(psi_unnorm, compensated)
+    mesh = _flat_mesh(matvec)
+    nrm = _norm_c(psi_unnorm, compensated, mesh)
     psi = psi_unnorm / torch.clamp(nrm, min=tiny)
     hpsi = matvec(psi)
-    E = _re(_inner_c(psi, hpsi, compensated))
-    resid = _norm_c(hpsi - E * psi, compensated)
+    E = _re(_inner_c(psi, hpsi, compensated, mesh))
+    resid = _norm_c(hpsi - E * psi, compensated, mesh)
     return psi, E, resid
 
 
@@ -538,6 +579,7 @@ def _second_pass_accumulate(matvec, v1, y, m: int, compensated: bool = False):
     tiny = torch.finfo(rdtype).tiny
     zero = torch.zeros((), dtype=rdtype, device=v1.device)
     axpy_ok = getattr(matvec, "supports_axpy", False)
+    mesh = _flat_mesh(matvec)
     v_prev, v_curr = bv_zeros_like(v1), v1
     beta_prev = zero
     acc = bv_zeros_like(v1)
@@ -545,13 +587,13 @@ def _second_pass_accumulate(matvec, v1, y, m: int, compensated: bool = False):
         acc = acc + v_curr * y[j]
         if axpy_ok:
             w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _re(_inner_c(v_curr, w, compensated))
+            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
             w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _re(_inner_c(v_curr, w, compensated))
+            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
             w = w - alpha * v_curr - beta_prev * v_prev
-        beta = _norm_c(w, compensated)
+        beta = _norm_c(w, compensated, mesh)
         inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny), zero)
         v_prev, v_curr = v_curr, w * inv
         beta_prev = beta

@@ -3,6 +3,10 @@
 A JAX SpinModel's couplings (np.asarray of its fields) rebuild the same model
 here; BlockVec leaves go across as a list of numpy arrays, e.g. a JAX ground
 state `[np.asarray(l) for l in psi.leaves]` fed to the port's kpm_sqw_kron.
+A JAX model padded for sharding (its n_states above its n_valid) becomes
+the port's padded model (`n_states=`), and its `diag` and `nbr` arrays the
+tables of the port's sharded applies (`flat_tables_from_numpy`), so that
+both packages apply the same operator.
 """
 
 from __future__ import annotations
@@ -14,26 +18,31 @@ from ..model import _TORCH_DTYPES, SpinModel, build_model
 from ..solvers.blockvec import BlockVec
 
 __all__ = ["model_from_numpy", "model_from_jax_arrays",
+           "flat_tables_from_numpy",
            "blockvec_from_numpy", "blockvec_to_numpy",
            "state_from_numpy", "state_to_numpy"]
 
 
 def model_from_numpy(L: int, nup, hop_sites, hop_J, field, zz_sites, zz_J,
                      splits=None, dtype: torch.dtype | None = None,
-                     layout: str = "sector_kron") -> SpinModel:
+                     layout: str = "sector_kron",
+                     n_states: int | None = None) -> SpinModel:
     """Port model from a JAX SpinModel's couplings passed as numpy: bond
     site pairs, their J values, the onsite field and, for
     layout="sector_kron", the kron splits. layout is "sector_kron",
     "compact" (the JAX package's mode "sector": the same ascending states,
     so its states and parameters carry across unchanged), "sector_blocked"
     (the JAX package's mode "sector" with lo_bits: the same blocked order),
-    "embedded" or "full" (nup=None). dtype defaults to that of field."""
+    "embedded" or "full" (nup=None). dtype defaults to that of field.
+    `n_states` is the JAX model's row count: above the logical dimension
+    (a JAX model padded for sharding, its n_valid the logical one) the
+    port's model is padded to it (parallel/sharded_apply.pad_model)."""
     hop_J = np.asarray(hop_J)
     zz_J = np.asarray(zz_J)
     field = np.asarray(field)
     if dtype is None:
         dtype = _TORCH_DTYPES[field.dtype]
-    return build_model(
+    model = build_model(
         int(L), nup=None if nup is None else int(nup),
         hopping=[(int(i), int(j), float(J))
                  for (i, j), J in zip(hop_sites, hop_J)],
@@ -43,6 +52,26 @@ def model_from_numpy(L: int, nup, hop_sites, hop_J, field, zz_sites, zz_J,
         kron_splits=(tuple(int(s) for s in splits)
                      if layout == "sector_kron" and splits is not None
                      else None))
+    if n_states is not None and int(n_states) != model.n_states:
+        import dataclasses
+
+        if int(n_states) < model.n_states:
+            raise ValueError(f"n_states={n_states} is below the model's "
+                             f"{model.n_states} rows")
+        model = dataclasses.replace(model, n_states_static=int(n_states),
+                                    n_valid=model.n_states)
+    return model
+
+
+def flat_tables_from_numpy(diag, nbr, device,
+                           dtype: torch.dtype | None = None):
+    """(diag, nbr) tensors on `device` from a JAX flat model's `diag` [N]
+    and ELL table `nbr` [N, n_bonds] (padded ones included): the `tables=`
+    of the sharded ELL applies (parallel/sharded_apply). diag keeps its
+    dtype unless `dtype` says otherwise; nbr becomes int32."""
+    diag = np.asarray(diag)
+    return (_tensor(diag, dtype or _TORCH_DTYPES[diag.dtype], device),
+            torch.tensor(np.asarray(nbr), dtype=torch.int32, device=device))
 
 
 # the JAX model's fields arrive as numpy arrays either way

@@ -478,3 +478,190 @@ def test_numpy_bf16_round_trip_matches_ml_dtypes():
     # other dtypes as before
     assert convert.state_from_numpy(x, "cpu").dtype == torch.float32
     assert convert.blockvec_from_numpy([x], "cpu").dtype == torch.float32
+
+
+# ---- lift once per use: bit for bit against a lift-per-use composition ----
+
+
+def _lift_all(bv):
+    return [l.float() for l in bv.leaves]
+
+
+def _ref_k1(H, bv, axpy=None):
+    """H bv (+ s bv0) of a bfloat16 BlockVec through the plain K1, composed
+    with a lift at every use: every sum on float32 copies of the leaves,
+    the seeds and tails rounded once to bfloat16."""
+    lay, tables, calls = H.layout, H.tables, H.calls
+    fused = kg.fused_group_set(lay, H.top_k)
+    L32, bf = _lift_all(bv), torch.bfloat16
+    tail = frozenset(range(len(lay.groups))) - fused
+    hi = tsk.apply_H_sector_kron(L32, None, lay, tables, terms="hi,crossh",
+                                 group_filter=tail) if tail else None
+    lo = tsk.apply_H_sector_kron(L32, None, lay, tables,
+                                 terms="diag,lo,mid,crossl",
+                                 group_filter=tail) if tail else None
+    outs = []
+    for gi in range(len(lay.groups)):
+        sg = None if axpy is None else axpy[0] * axpy[1].leaves[gi].float()
+        if gi in tail:
+            t = lo[gi] + hi[gi]
+            outs.append((t if sg is None else t + sg).to(bf))
+            continue
+        call = calls[gi]
+        seed = (tsk.apply_H_sector_kron(L32, None, lay, tables,
+                                        terms=call.seed_terms,
+                                        group_filter=(gi,))[gi]
+                if call.has_seed else None)
+        if sg is not None:
+            seed = sg if seed is None else seed + sg
+        seed = None if seed is None else seed.to(bf).float()
+        outs.append(kg.kron_group_apply_reference(
+            L32[gi], seed, [L32[c[0]] for c in call.cross],
+            [L32[c[0]] for c in call.crossh], call).to(bf))
+    un = [calls[gi] for gi in sorted(fused) if calls[gi].unsupported]
+    if un:
+        ex = kg._unsupported_terms(L32, lay, tables, un)
+        outs = [o if e is None else (o.float() + e).to(bf)
+                for o, e in zip(outs, ex)]
+    return outs
+
+
+def _ref_term(H, fused, prev, curr, acc, scal):
+    """One K2-fused Chebyshev term of bfloat16 pairs through K2's plain
+    version, composed with a lift at every use; acc updated in place."""
+    lay, tables, calls = H.layout, H.tables, H.calls
+    a_inv, b, c_r, c_i = scal
+    bf = torch.bfloat16
+    C32 = (_lift_all(curr[0]), _lift_all(curr[1]))
+    tail = frozenset(range(len(lay.groups))) - fused
+    un = [calls[gi] for gi in sorted(fused) if calls[gi].unsupported]
+    ex = [kg._unsupported_terms(c, lay, tables, un) for c in C32] if un \
+        else None
+    nxt = []
+    for gi in range(len(lay.groups)):
+        if gi in tail:
+            h = [tsk.apply_H_sector_kron(c, None, lay, tables,
+                                         group_filter=(gi,))[gi] for c in C32]
+        else:
+            call = calls[gi]
+            seed = []
+            for p in (0, 1):
+                s = (tsk.apply_H_sector_kron(C32[p], None, lay, tables,
+                                             terms=call.seed_terms,
+                                             group_filter=(gi,))[gi]
+                     if call.has_seed else None)
+                e = None if ex is None else ex[p][gi]
+                if e is not None:
+                    s = e if s is None else s + e
+                seed.append(None if s is None else s.to(bf).float())
+            h = [kg.kron_group_apply_reference(
+                C32[p][gi], seed[p], [C32[p][c[0]] for c in call.cross],
+                [C32[p][c[0]] for c in call.crossh], call) for p in (0, 1)]
+        x = [(h[p] - b * curr[p].leaves[gi].float()) * (2.0 * a_inv)
+             - prev[p].leaves[gi].float() for p in (0, 1)]
+        acc[0].leaves[gi].add_(c_r * x[0]).sub_(c_i * x[1])
+        acc[1].leaves[gi].add_(c_i * x[0]).add_(c_r * x[1])
+        nxt.append((x[0].to(bf), x[1].to(bf)))
+    return [n[0] for n in nxt], [n[1] for n in nxt]
+
+
+def _ref_plain_step(H, pair, c_ri, ab, n):
+    """The plain recurrence's step of a bfloat16 pair (terms through the
+    lift-per-use K1 composition), every combine on lifted leaves."""
+    a_inv, b = ab
+    bf = torch.bfloat16
+    c = [(float(r), float(i)) for r, i in np.asarray(c_ri, np.float32)]
+
+    def mvr(p):
+        return [[((h.float() - b * x.float()) * a_inv).to(bf)
+                 for h, x in zip(_ref_k1(H, P), P.leaves)] for P in p]
+
+    def acc_add(acc, x, ck):
+        for ar, ai, xr, xi in zip(acc[0], acc[1], x[0], x[1]):
+            xr, xi = xr.float(), xi.float()
+            ar.add_(xr * ck[0]).sub_(xi * ck[1])
+            ai.add_(xr * ck[1]).add_(xi * ck[0])
+
+    pr, pi = pair[0].leaves, pair[1].leaves
+    acc = ([r.float() * c[0][0] - i.float() * c[0][1] for r, i in zip(pr, pi)],
+           [r.float() * c[0][1] + i.float() * c[0][0] for r, i in zip(pr, pi)])
+    prev, curr = [list(pr), list(pi)], mvr(pair)
+    acc_add(acc, curr, c[1])
+    for ck in c[2:n]:
+        t = mvr((pair[0].like(curr[0]), pair[0].like(curr[1])))
+        nx = [[(tt.float() * 2.0 - pv.float()).to(bf)
+               for tt, pv in zip(t[p], prev[p])] for p in (0, 1)]
+        acc_add(acc, nx, ck)
+        prev, curr = curr, nx
+    return [l.to(bf) for l in acc[0]], [l.to(bf) for l in acc[1]]
+
+
+@pytest.mark.parametrize("kind", ["xxz", "long_range"])
+def test_bf16_lift_once_is_bit_for_bit(kind):
+    """The bfloat16 glue that lifts each leaf once per use and lets each
+    write round once (ops/cheb_term, ops/kron_group, ops/sector_kron,
+    solvers/kron_evolve) against a local lift-per-use composition of the
+    same operations: one K2 term (tail groups and, for the long-range
+    model, unsupported seed entries included), one K1 apply with the
+    Lanczos axpy, and one plain-recurrence step are equal bit for bit;
+    term_seed's bfloat16 seed equals the float32 seed rounded."""
+    if kind == "xxz":
+        m, top_k = pt.xxz_chain(14, Jxy=1.0, Jz=0.5, nup=7,
+                                kron_splits=(6, 4, 4)), 6
+    else:
+        m = pt.build_model(8, nup=4, hopping=tct.long_range_hopping(
+            8, tct._lr), kron_splits=(3, 3, 2))
+        top_k = 4
+    lay = tsk.make_sector_kron_layout(m, m.kron_splits)
+    H = pt.KronHamiltonian(lay, device="cpu", top_k=top_k)
+    fused = kg.fused_group_set(lay, top_k)
+    assert len(fused) < len(lay.groups)  # tail groups take part
+    if kind == "long_range":
+        assert any(H.calls[gi].unsupported for gi in fused)
+    g = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    prev, curr = ((tbv.bv_random(lay, g, bf, "cpu"),
+                   tbv.bv_random(lay, g, bf, "cpu")) for _ in range(2))
+    acc = (tbv.bv_random(lay, g, torch.float32, "cpu"),
+           tbv.bv_random(lay, g, torch.float32, "cpu"))
+    acc_ref = tuple(a.map(torch.clone) for a in acc)
+    scal = (0.11, 0.7, 0.3, -0.2)
+    got = ct.cheb_term_fused(lay, H.tables, H.calls, fused, prev, curr, acc,
+                             scal)
+    want = _ref_term(H, fused, prev, curr, acc_ref, scal)
+    for p in (0, 1):
+        assert all(torch.equal(a, b) for a, b in zip(got[p].leaves, want[p]))
+        assert all(torch.equal(a, b) for a, b in zip(acc[p].leaves,
+                                                     acc_ref[p].leaves))
+    # the seeds: the float32 sum rounded once
+    un = [H.calls[gi] for gi in sorted(fused) if H.calls[gi].unsupported]
+    for gi in sorted(fused):
+        call = H.calls[gi]
+        blocks = (list(curr[0].leaves), list(curr[1].leaves))
+        ex32 = ([kg._unsupported_terms(b, lay, H.tables, un)[gi]
+                 for b in blocks] if un else [None, None])
+        ex = None if ex32[0] is None else tuple(ex32)
+        seed = ct.term_seed(blocks, lay, H.tables, call, ex)
+        H32 = pt.KronHamiltonian(lay, device="cpu", top_k=top_k)
+        f32 = ct.term_seed(([l.float() for l in blocks[0]],
+                            [l.float() for l in blocks[1]]), lay,
+                           H32.tables, H32.calls[gi], ex)
+        if seed is None:
+            assert f32 is None
+            continue
+        assert seed[0].dtype == bf
+        assert all(torch.equal(s, f.to(bf)) for s, f in zip(seed, f32))
+    # one K1 apply with the Lanczos axpy, and without
+    for axpy in (None, (torch.tensor(-0.37), prev[0])):
+        got = H(curr[0]) if axpy is None else H(curr[0], *axpy)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got.leaves, _ref_k1(H, curr[0], axpy)))
+    # one plain-recurrence step
+    planes = tke.kron_planes_matvec_fn(lay, device="cpu", cheb_fused=False)
+    planes.H.top_k = top_k
+    c_ri, ab = tke._coeff_arrays(tch.chebyshev_coefficients(0.1, -6.0, 6.0,
+                                                            8))
+    got = tke._cheb_kron_scan(planes, curr, c_ri, ab, 8)
+    want = _ref_plain_step(planes.H, curr, c_ri, ab, 8)
+    for p in (0, 1):
+        assert all(torch.equal(a, b) for a, b in zip(got[p].leaves, want[p]))

@@ -227,3 +227,66 @@ def test_trajectory_matches_jax_planes_run(tmp_path):
         0.1, 4, Ebounds=bounds, cheb_n=30,
         checkpoint_dir=str(tmp_path / "t"), checkpoint_every=2)
     assert np.allclose(obs_t, obs_p, atol=5e-5)
+
+
+def test_planes_trajectory_matches_jax_with_resume(tmp_path):
+    """evolve_trajectory_planes against the JAX function (the JAX test's
+    cases): float32 [2, N] planes and observables within 5e-5 of the JAX
+    plane recurrence (the port runs the complex64 step), a run cut after
+    5 of 8 steps and resumed (Ebounds from the metadata) equal to the
+    uninterrupted one bit for bit, and a finished run's resume returning
+    the saved state."""
+    mj = sd.xxz_chain(8, Jxy=1.0, Jz=0.5, nup=4, dtype=jnp.float64)
+    mt = model_from_numpy(8, 4, mj.hop_sites, np.asarray(mj.hop_J),
+                          np.asarray(mj.field), mj.zz_sites,
+                          np.asarray(mj.zz_J), layout="compact")
+    bounds = (-8.0, 8.0)
+    psi0 = np.asarray(sd.domain_wall_state(mj, dtype=jnp.float32))
+    want_planes, want_obs = jru.evolve_trajectory_planes(
+        mj, jnp.asarray(psi0), 0.1, 8, Ebounds=bounds, cheb_n=24)
+    x0 = torch.tensor(psi0)
+    planes, obs = pt.evolve_trajectory_planes(mt, x0, 0.1, 8,
+                                              Ebounds=bounds, cheb_n=24)
+    assert planes.shape == (2, mt.n_states) and planes.dtype == torch.float32
+    assert obs.shape == want_obs.shape
+    assert np.allclose(planes.numpy(), np.asarray(want_planes), atol=5e-5)
+    assert np.allclose(obs, want_obs, atol=5e-5)
+    ck = str(tmp_path / "traj")
+    pt.evolve_trajectory_planes(mt, x0, 0.1, 5, Ebounds=bounds, cheb_n=24,
+                                checkpoint_dir=ck, checkpoint_every=3)
+    _, meta, extra = load_checkpoint(ck)
+    assert meta["step"] == 5 and extra["obs"].shape == (5, 8)
+    got_planes, got_obs = pt.evolve_trajectory_planes(
+        mt, x0, 0.1, 8, cheb_n=24, checkpoint_dir=ck, checkpoint_every=3,
+        resume=True)
+    assert torch.equal(got_planes, planes)
+    assert np.array_equal(got_obs, obs)
+    again_planes, again_obs = pt.evolve_trajectory_planes(
+        mt, x0, 0.1, 8, cheb_n=24, checkpoint_dir=ck, resume=True)
+    assert torch.equal(again_planes, planes)
+    assert np.array_equal(again_obs, obs)
+    # a complex start and a [2, N] start are the same planes
+    c0 = torch.complex(x0, torch.zeros_like(x0))
+    for start in (c0, torch.stack([x0, torch.zeros_like(x0)])):
+        p2, _ = pt.evolve_trajectory_planes(mt, start, 0.1, 2,
+                                            Ebounds=bounds, cheb_n=24)
+        assert torch.equal(p2, pt.evolve_trajectory_planes(
+            mt, x0, 0.1, 2, Ebounds=bounds, cheb_n=24)[0])
+
+
+def test_planes_trajectory_observables_contract(model):
+    """As in the JAX package: resume needs a directory, a phase-sensitive
+    `observe` without diagonal_in_z is refused, `observe_planes` gets the
+    planes (here Re<psi0|psi(t)>, bounded by 1)."""
+    psi0 = pt.neel_state(model, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        pt.evolve_trajectory_planes(model, psi0, 0.1, 2,
+                                    Ebounds=(-8.0, 8.0), resume=True)
+    with pytest.raises(ValueError, match="diagonal"):
+        pt.evolve_trajectory_planes(model, psi0, 0.1, 2,
+                                    Ebounds=(-6.0, 6.0), cheb_n=16,
+                                    observe=lambda p, m: p[0])
+    _, obs = pt.evolve_trajectory_planes(
+        model, psi0, 0.1, 3, Ebounds=(-6.0, 6.0), cheb_n=16,
+        observe_planes=lambda planes, m: torch.dot(psi0, planes[0]))
+    assert obs.shape == (3,) and np.all(np.abs(obs) <= 1.0 + 1e-5)

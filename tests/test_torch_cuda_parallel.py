@@ -1,6 +1,8 @@
-"""The sharded kron apply on the card: K1's crossw variant (float32 and
+"""The sharded applies on the card: K1's crossw variant (float32 and
 bfloat16 states) on the local blocks of a LocalMesh against the same apply
-on the CPU (the plain version). Marked `gpu`: the tests need a CUDA device
+on the CPU (the plain version); the row-sharded flat applies (the halo ELL
+apply with the card's halo plan, the sharded blocked apply) against the
+unsharded applies on the card. Marked `gpu`: the tests need a CUDA device
 and skip elsewhere. Imports no jax:
 python -m pytest --noconftest tests/test_torch_cuda_parallel.py"""
 
@@ -77,3 +79,45 @@ def test_crossw_refuses_wrong_windows(cuda_device):
            for s in call.crossw_shapes]
     with pytest.raises(TypeError, match="window"):
         kg.kron_group_apply(T, None, srcs, [], call, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_sharded_flat_applies_on_card(cuda_device, D):
+    """The halo and all-gather ELL applies of a compact model on a
+    LocalMesh on the card against the unsharded ell apply there (1e-6 of
+    max|y|, pad rows exactly 0; the halo apply makes no all-gather); the
+    card's halo plan (build_halo_plan_torch) equals the host's bit for
+    bit; the sharded blocked apply of the embedded model against K3."""
+    from spindynamics_tpu_torch.ops import fused_matvec as fm
+    from spindynamics_tpu_torch.parallel import sharded_apply as tsa
+
+    m = pt.xxz_chain(16, Jxy=1.0, Jz=0.5, nup=8, layout="compact")
+    mesh = pt.LocalMesh(D, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    x = torch.randn(m.n_states, generator=g, device=cuda_device)
+    want = pt.matvec_fn(m, device=cuda_device)(x)
+    scale = float(want.abs().max())
+    for fn in (pt.sharded_matvec_halo_fn, pt.sharded_matvec_fn):
+        mv, pm = fn(m, mesh)
+        mesh.reset_counters()
+        y = mv(pt.shard_state(x, mesh))
+        assert float((y[:m.n_states] - want).abs().max()) <= 1e-6 * scale
+        assert not y[m.n_states:].any()
+        if fn is pt.sharded_matvec_halo_fn:
+            assert mesh.counters()["n_all_gather"] == 0
+    _, _, nbr = pt.model.sector_setup(pm, cuda_device)
+    host = tsa.build_halo_plan(nbr.cpu().numpy(), pm.n_states, D)
+    card = tsa.build_halo_plan_torch(nbr, pm.n_states, D)
+    assert card[2] == host[2]
+    for a, b in zip(card[:2], host[:2]):
+        assert np.array_equal(a.cpu().numpy(), b)
+    if D & (D - 1):
+        return
+    me = pt.xxz_chain(16, Jxy=1.0, Jz=0.5, nup=8, layout="embedded")
+    xe = torch.randn(me.n_states, generator=g, device=cuda_device)
+    want = pt.matvec_fn(me, device=cuda_device)(xe)  # K3
+    fm.reset_kernel_launch_count()
+    y = pt.matvec_fn(me, mesh=mesh)(pt.shard_state(xe, mesh))
+    assert fm.kernel_launch_count() == 0  # no unsharded fallback
+    assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -1,7 +1,9 @@
-"""The port's package namespace against the JAX package's, the XY chain
-functions against the JAX models, and the kron rank helpers (kron_rank,
-kron_order_states) with the one-hot BlockVec built on them."""
+"""The port's package namespace against the JAX package's (names and
+signatures), the XY chain functions against the JAX models, and the kron
+rank helpers (kron_rank, kron_order_states) with the one-hot BlockVec built
+on them."""
 
+import inspect
 import types
 
 import jax.numpy as jnp
@@ -27,8 +29,122 @@ def test_namespace_covers_the_jax_package():
     assert len(pt.__all__) == len(set(pt.__all__))
     assert all(v.startswith(("ROADMAP", "not ported"))
                for v in pt.NOT_PORTED.values())
-    # the tensor backend is ported: what is left is not to be ported
-    assert set(pt.NOT_PORTED) == {"evolve_trajectory_planes"}
+    # evolve_trajectory_planes was the last: every name is ported
+    assert pt.NOT_PORTED == {}
+
+
+# The deliberate differences between the two packages' signatures, each
+# with its reason. A JAX keyword the port renames:
+RENAMED = {
+    "key": ("generator", "a torch.Generator replaces a JAX PRNG key"),
+    "pmv": ("planes", "the planes module (KronPlanes) replaces the JAX "
+            "closure pmv"),
+    "pmv_or_mv": ("planes_or_mv", "the same, where a matvec is taken too"),
+    "sharding": ("mesh", "a LocalMesh or ProcessMesh replaces a "
+                 "jax.sharding object"),
+}
+# JAX keywords the port does not take:
+JAX_ONLY = {
+    "axis_name": "the port's meshes have one axis (the kron entry points; "
+                 "the flat parallel/ functions keep it for their callers)",
+    # SpinModel fields
+    "states": "the port's SpinModel stores no N-sized array: the states, "
+              "diagonal and ELL table are built on the asking device",
+    "diag": "as for states",
+    "nbr": "as for states",
+    "binom": "as for states",
+}
+# Keywords the port adds:
+PORT_ONLY = {
+    "device": "entry points run on the card unless asked for the CPU",
+    "generator": "the renamed key",
+    "planes": "the renamed pmv",
+    "planes_or_mv": "the renamed pmv_or_mv",
+    "mesh": "the renamed sharding, and the port's mesh= of the sharded "
+            "paths (a BlockVec's mesh, the flat trajectories)",
+    "shard": "BlockVec constructors' sharded form",
+    "v0": "a given start vector where the JAX function draws one",
+    "matvec": "a prebuilt FlatHamiltonian, so a caller's tables are kept",
+    "dtype": "the state dtype where the JAX function takes the model's",
+    "cheb_fused": "K2's routing, a field (the JAX package reads the "
+                  "environment)",
+    "cheb_top_k": "as cheb_fused",
+    "checkpoint_dir": "evolve_trajectory checkpoints (the JAX package "
+                      "keeps them on evolve_trajectory_planes)",
+    "checkpoint_every": "as checkpoint_dir",
+    "resume": "as checkpoint_dir",
+    "kw": "run_kpm_dynamical forwards kpm_correlation_matrix's keywords",
+    "nbr": "apply_H_ell's and apply_H_tensor's prebuilt tables",
+    "diag": "as nbr",
+    "chunk": "apply_H_ell's row chunk (the JAX package gathers every row)",
+    "neighbor_table": "SpinModel records build_neighbor_table (the port's "
+                      "model holds no table)",
+}
+
+
+def _params(f):
+    return list(inspect.signature(f).parameters)
+
+
+def test_signatures_match_the_jax_package():
+    """For every exported name of both packages, every JAX keyword is
+    accepted by the port (under its RENAMED name), unless JAX_ONLY lists
+    it; every keyword the port adds is listed in PORT_ONLY."""
+    checked = 0
+    for name in pt.__all__:
+        fj, ft = getattr(sd, name, None), getattr(pt, name)
+        if fj is None or not callable(fj):
+            continue
+        try:
+            pj, ptt = _params(fj), _params(ft)
+        except (TypeError, ValueError):
+            continue
+        checked += 1
+        for p in pj:
+            want = RENAMED.get(p, (p,))[0]
+            assert want in ptt or p in JAX_ONLY, \
+                f"{name}: the JAX keyword {p!r} is not accepted"
+        renamed_to = {RENAMED[p][0] for p in pj if p in RENAMED}
+        for p in ptt:
+            assert p in pj or p in renamed_to or p in PORT_ONLY, \
+                f"{name}: the port's keyword {p!r} is not listed"
+    assert checked > 80
+
+
+def test_parity_keywords_run():
+    """The JAX keywords the port once refused: each runs, with the JAX
+    meaning where it has one (masked=False keeps the pad draws)."""
+    m = pt.xxz_chain(8, Jxy=1.0, Jz=0.5, nup=4, dtype=torch.float64)
+    mc = pt.build_model(8, nup=4, hopping=pt.nn_hopping(8, 1.0),
+                        layout="compact", lean=True, device_build=False,
+                        dtype=torch.float64)
+    psi = torch.ones(mc.n_states, dtype=torch.float64)
+    assert torch.equal(pt.apply_H(psi, mc, exact_J=True),
+                       pt.apply_H(psi, mc))
+    lay = tsk.make_sector_kron_layout(m, m.kron_splits)
+    g = torch.Generator().manual_seed(0)
+    bv = pt.bv_random(lay, g, torch.float64, "cpu", masked=False)
+    assert any(float(l[:, cm:].abs().sum() + l[:, :, cl:].abs().sum()) > 0
+               for l, (*_, cm, cl, cmp, clp) in zip(bv.leaves, lay.groups)
+               if cmp != cm or clp != cl)
+    planes = pt.kron_planes_matvec_fn(lay, pt.KronHamiltonian(
+        lay, dtype=torch.float64, device="cpu", fused=False).tables,
+        fused=False, dtype=torch.float64, device="cpu")
+    x = pt.bv_random(lay, g, torch.float64, "cpu")
+    want = pt.kron_planes_matvec_fn(lay, fused=False, dtype=torch.float64,
+                                    device="cpu")((x, x))[0]
+    assert all(torch.equal(a, b) for a, b in zip(planes((x, x))[0].leaves,
+                                                 want.leaves))
+    psi0 = pt.domain_wall_state(mc, dtype=torch.complex128, device="cpu")
+    C1 = pt.kpm_correlation_matrix(psi0, np.linspace(-2, 4, 9), mc, n=20,
+                                   a=8.0, b=0.0)
+    C3 = pt.kpm_correlation_matrix(psi0, np.linspace(-2, 4, 9), mc, n=20,
+                                   a=8.0, b=0.0, chunk_B=3)
+    assert torch.equal(C1, C3)
+    S, info = pt.lanczos_sqw_kron(m, [np.pi], [0.0, 1.0], lanc_m=10,
+                                  gs_lanc_m=20, cycles=2, plane_mode=None,
+                                  fused=False, device="cpu")
+    assert info["plane_mode"] == "pair" and np.all(np.isfinite(S))
 
 
 def _lr(i, j):
