@@ -170,6 +170,16 @@ with no result line):
            the phase. --examples-full adds the published depth: 60 steps
            at L=28 and 40 at L=30 against their .npz files, the L=32
            ground state (E0/L within 1e-5 of PARITY's)
+  bench    the port's bench as a user runs it, each in its own process:
+           python -m spindynamics_tpu_torch.bench --time-budget 300 (the
+           L=32 headline and bench.py's default matrix, every point held
+           to its plain version before it prints; held here: bench.py's
+           seven names in order, the headline first and last, every
+           vs_baseline in (0, 1.05] against bounds that count the same work
+           whatever implements it, the card's name on every line, K1, K2
+           and K3 launched and K1's crossw variant not), then
+           scripts.bench_kron 24 and scripts.mxu_calibrate --bf16 (the
+           card's product and copy rates beside the data sheet's)
   profile  (--profile) torch.profiler kernel tables of one KPM moment step,
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^15
@@ -183,7 +193,9 @@ seconds, peak memory, launches per kernel), one with the examples' records
 (argv, wall seconds, peak memory, K1 and K2 launches, checks), one with
 the sector_blocked
 apply's numbers and one with the ell apply's (plain torch, not kernels:
-their times, bounds, CSR time and apply counts), one with the kernel
+their times, bounds, CSR time and apply counts), one with the bench
+phase's records (`bench`: the bench's lines; its process's launches,
+bench_kron's and the calibration's records), one with the kernel
 records (`cli_launches`, `examples_launches`: the kernel's launches in
 the cli and examples phases), and last the device line.
 
@@ -195,22 +207,24 @@ over 67 TFLOP/s (the H100 SXM data sheet). `fma_route_bound_ms` is the
 bound with every product on the FMAs; `fma_ms` the FMA route's time on the
 same launches, measured beside the tensor-core route (`tc_ms_beside_fma`).
 
-The sharded, compact, sector-blocked, cli and examples phases come on top
-of the earlier ones, none of which is cut in depth for them (the cli phase
-cuts its own: --kpm-m 10, and --twopass --lanc-m 40 for the L=24 pair; the
-examples phase its own: nq 2 for the Lanczos S(q, omega), 20 of the 60
-trajectory steps, no L=30 or L=32 without --examples-full): with the
-defaults the whole script takes about 14 minutes on an H100 80GB HBM3 (the
-examples phase about 4.5; the limit is 20), with --examples-full about 2
-more.
+The sharded, compact, sector-blocked, cli, examples and bench phases come
+on top of the earlier ones, none of which is cut in depth for them (the cli
+phase cuts its own: --kpm-m 10, and --twopass --lanc-m 40 for the L=24
+pair; the examples phase its own: nq 2 for the Lanczos S(q, omega), 20 of
+the 60 trajectory steps, no L=30 or L=32 without --examples-full; the bench
+runs its defaults): with the defaults the whole script takes about 15
+minutes on an H100 80GB HBM3 (the examples phase about 4.5, the bench
+phase about 1; the limit is 20), with --examples-full about 2 more.
 
 Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--L-compact 28]
                              [--shards 4] [--profile] [--k3-tiles]
                              [--kron-tiles] [--ell-chunks]
                              [--examples-full]
+       python3 chip_smoke.py --bench-only | --shard-flat | --bf16-steps
        python3 chip_smoke.py --k3-against DIR [--L-flat 26]
 (--k3-against runs only the k3 phase, of the checkout at DIR and of this
-one in turns, and prints no result line.)
+one in turns; --bench-only, --shard-flat and --bf16-steps build the
+kernels and run their phases alone; none of them prints a result line.)
 """
 
 from __future__ import annotations
@@ -225,13 +239,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spindynamics_tpu_torch.utils.dtypes import err_ratio
+from spindynamics_tpu_torch.utils.profiling import (
+    BF16_TC_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, card_info,
+    event_ms, graph_ms, sync_time)
+
 # docs/PARITY.md: L=16 CPU x64; L=28 and L=32 f32 ground states (physical
 # energies used as oracles, not speed figures)
 E0_REF = {16: -11.67077735, 28: -20.663187, 32: -23.661858}
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
-BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (data sheet)
 
 
 def _bound(n_bytes, flops, tc_flops=0.0):
@@ -252,43 +267,6 @@ def _bounds(works):
                                        for i in range(6))
     return (_bound(nb, fma, tc), _bound(nb, fma_all), nb / 1e9, prod / 1e9,
             tc1 / 1e9)
-
-
-def _sync_time(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def _event_ms(fn, reps=20, warm=3):
-    """Median CUDA-event time of fn() in ms (warm)."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _graph_ms(fn, reps=20):
-    """Median CUDA-event time in ms of one replay of fn()'s launches
-    captured in a CUDA graph: the device's time for them with the host's
-    enqueue cost taken out (an eager loop of many short launches is paced
-    by the host)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return _event_ms(graph.replay, reps=reps)
 
 
 def dense_sector_H(model):
@@ -333,11 +311,8 @@ def exact_sz_trajectory(model, bitstring, dt, n_steps):
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the chip smoke runs on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)  # name, power limit: every time below is on this card
+    # name, power limit: every time below is on this card
+    print(card_info()["smi"])
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} | "
           f"count {torch.cuda.device_count()}")
 
@@ -471,13 +446,13 @@ def phase_k1(L, dev):
                 fn(T, seed, srcs, srcsh, c)
         return go
 
-    k_ms = _event_ms(run(kg.kron_group_apply))
-    p_ms = _event_ms(run(kg.kron_group_apply_reference))
-    k_ms2 = _event_ms(run(kg.kron_group_apply))
-    p_ms2 = _event_ms(run(kg.kron_group_apply_reference))
+    k_ms = event_ms(run(kg.kron_group_apply))
+    p_ms = event_ms(run(kg.kron_group_apply_reference))
+    k_ms2 = event_ms(run(kg.kron_group_apply))
+    p_ms2 = event_ms(run(kg.kron_group_apply_reference))
     Hp = type(H)(lay, dtype=torch.float32, device=dev, fused=False)
-    full_k = _event_ms(lambda: H(bv))
-    full_p = _event_ms(lambda: Hp(bv))
+    full_k = event_ms(lambda: H(bv))
+    full_p = event_ms(lambda: Hp(bv))
     print(f"k1 L={L} splits={lay.splits}: {len(args)}/{len(lay.groups)} "
           f"groups fused | max|d|/max|y| {rel_err:.3e} (<= 1e-5), max|d| "
           f"{abs_err:.3e}, pads 0 | kernel part of one apply (median of 20, "
@@ -571,8 +546,8 @@ def phase_kron_tiles(L, dev):
         elif not all(torch.equal(x, y) for x, y in zip(got, rows["ref"])):
             raise RuntimeError(f"K1 with {bm}-row tiles differs from the rule")
         del got
-        k1 = _event_ms(lambda: [kg.kron_group_apply(*a) for a in a1])
-        k2 = _event_ms(lambda: [ct.cheb_term_apply(*a, scal) for a in a2])
+        k1 = event_ms(lambda: [kg.kron_group_apply(*a) for a in a1])
+        k2 = event_ms(lambda: [ct.cheb_term_apply(*a, scal) for a in a2])
         rows.setdefault(bm, []).append((k1, k2))
     print(f"kron-tiles L={L}: K1 / K2 ms (median of 20) with 32-row tiles "
           f"{rows[32][0][0]:.3f} / {rows[32][0][1]:.3f}, 64-row "
@@ -602,7 +577,7 @@ def phase_k1_fma(L, dev):
     if n_fma == 0:
         raise RuntimeError("Jxy=0.3: no W_lo segment took the FMA route")
     x_abs, x_rel = _k1_check(L, lay, args)
-    x_ms = _event_ms(lambda: [kg.kron_group_apply(T, sd, srcs, srcsh, c)
+    x_ms = event_ms(lambda: [kg.kron_group_apply(T, sd, srcs, srcsh, c)
                               for (T, sd, _, srcs, srcsh, c) in args])
     del H, args
 
@@ -625,7 +600,7 @@ def phase_k1_fma(L, dev):
                 kg.kron_group_apply(T, sd, srcs, srcsh, c if fma else a[5])
         return go
 
-    t1, f1, f1b, t1b = (_event_ms(k1(x)) for x in (False, True, True, False))
+    t1, f1, f1b, t1b = (event_ms(k1(x)) for x in (False, True, True, False))
     b1 = _bounds([_group_work(c, sd is not None)
                   for (_, sd, _, _, c) in fargs])[0]
     del args, fargs
@@ -656,7 +631,7 @@ def phase_k1_fma(L, dev):
                 ct.cheb_term_apply(*a[:6], fc if fma else a[6], scal)
         return go
 
-    t2, f2, f2b, t2b = (_event_ms(k2(x)) for x in (False, True, True, False))
+    t2, f2, f2b, t2b = (event_ms(k2(x)) for x in (False, True, True, False))
     b2 = _bounds([_group_work(fc, a[3] is not None, planes=2)
                   for a, fc in zip(args2, fcalls)])[0]
     print(f"k1-fma L={L}: XXZ Jxy=0.3 ({n_fma} W_lo segments on the FMAs): "
@@ -735,17 +710,17 @@ def phase_k2(L, dev):
                 fn(*a, scal)
         return go
 
-    k_ms = _event_ms(run(ct.cheb_term_apply))
-    p_ms = _event_ms(run(ct.cheb_term_apply_reference))
-    k_ms2 = _event_ms(run(ct.cheb_term_apply))
-    p_ms2 = _event_ms(run(ct.cheb_term_apply_reference))
+    k_ms = event_ms(run(ct.cheb_term_apply))
+    p_ms = event_ms(run(ct.cheb_term_apply_reference))
+    k_ms2 = event_ms(run(ct.cheb_term_apply))
+    p_ms2 = event_ms(run(ct.cheb_term_apply_reference))
     bound, bound_fma, gb, gf, gtc = _bounds(
         [_group_work(a[6], a[3] is not None, planes=2) for a in args])
     del args
     a_inv, b = scal[:2]
-    term_f = _event_ms(lambda: ct.cheb_term_fused(
+    term_f = event_ms(lambda: ct.cheb_term_fused(
         lay, H.tables, H.calls, fused, prev, curr, acc, scal), reps=10)
-    term_p = _event_ms(lambda: ke._plain_term(
+    term_p = event_ms(lambda: ke._plain_term(
         planes, prev, curr, acc, scal[2:], (a_inv, b)), reps=10)
     print(f"k2 L={L} splits={lay.splits}: {len(fused)}/{len(lay.groups)} "
           f"groups fused | max|d|/max|y| {rel_err:.3e} (<= 1e-5), max|d| "
@@ -770,18 +745,6 @@ def _lift(x):
     if isinstance(x, torch.Tensor):
         return x.float()
     return type(x)(_lift(y) for y in x)
-
-
-def _one_rounding(out, y32):
-    """(max |out - y32|, the worst |out - y32| over its limit) for a
-    bfloat16 `out` that should be the float32 `y32` rounded once: the limit
-    is 2^-8 |y32| (half a unit in the last place of 8 significand bits) +
-    1e-5 max|y32| (the float32 reassociation of the kernel's tile sums,
-    which can carry a sum across a rounding boundary). A ratio above 1 is an
-    indexing or ordering error, which a loose bf16 tolerance would hide."""
-    d = (out.float() - y32).abs()
-    lim = 2.0 ** -8 * y32.abs() + 1e-5 * float(y32.abs().max()) + 1e-30
-    return float(d.max()), float((d / lim).max())
 
 
 def phase_k1_bf16(L, dev):
@@ -811,7 +774,7 @@ def phase_k1_bf16(L, dev):
                                    f"{got.dtype}")
             if got[:, cm:, :].any() or got[:, :, cl:].any():
                 raise RuntimeError(f"L={L} group {c.gi}: pad slots not 0")
-            d, r = _one_rounding(got, y32)
+            d, r = err_ratio(got, y32, rounded=True)
             abs_err, worst = max(abs_err, d), max(worst, r)
             del got, y32
     if kg.kernel_launch_count(bf16) - n0 != 4 * len(args):
@@ -827,13 +790,13 @@ def phase_k1_bf16(L, dev):
                 fn(T, seed, srcs, srcsh, c)
         return go
 
-    kb = _event_ms(run(kg.kron_group_apply, args))
-    k32 = _event_ms(run(kg.kron_group_apply, args32))
-    pb = _event_ms(run(kg.kron_group_apply_reference, args), reps=10)
-    kb2 = _event_ms(run(kg.kron_group_apply, args))
-    k322 = _event_ms(run(kg.kron_group_apply, args32))
-    full_b = _event_ms(lambda: H(bv))
-    full_32 = _event_ms(lambda: H32(bv32))
+    kb = event_ms(run(kg.kron_group_apply, args))
+    k32 = event_ms(run(kg.kron_group_apply, args32))
+    pb = event_ms(run(kg.kron_group_apply_reference, args), reps=10)
+    kb2 = event_ms(run(kg.kron_group_apply, args))
+    k322 = event_ms(run(kg.kron_group_apply, args32))
+    full_b = event_ms(lambda: H(bv))
+    full_32 = event_ms(lambda: H32(bv32))
     bound, bound_fma, gb, gf, gtc = _bounds(
         [_group_work(c, seed is not None, state_bytes=2)
          for (_, seed, _, _, _, c) in args])
@@ -908,7 +871,7 @@ def phase_k2_bf16(L, dev):
                                    f"next as {x.dtype}")
             if x[:, cm:, :].any() or x[:, :, cl:].any():
                 raise RuntimeError(f"L={L} group {call.gi}: pad slots not 0")
-            d, r = _one_rounding(x, y)
+            d, r = err_ratio(x, y, rounded=True)
             abs_err, worst = max(abs_err, d), max(worst, r)
         for x, y in zip(acc_k, acc_p):
             acc_rel = max(acc_rel, float((x - y).abs().max())
@@ -929,18 +892,18 @@ def phase_k2_bf16(L, dev):
                 fn(*x, scal)
         return go
 
-    kb = _event_ms(run(ct.cheb_term_apply, args))
-    k32 = _event_ms(run(ct.cheb_term_apply, args32))
-    pb = _event_ms(run(ct.cheb_term_apply_reference, args), reps=10)
-    kb2 = _event_ms(run(ct.cheb_term_apply, args))
-    k322 = _event_ms(run(ct.cheb_term_apply, args32))
+    kb = event_ms(run(ct.cheb_term_apply, args))
+    k32 = event_ms(run(ct.cheb_term_apply, args32))
+    pb = event_ms(run(ct.cheb_term_apply_reference, args), reps=10)
+    kb2 = event_ms(run(ct.cheb_term_apply, args))
+    k322 = event_ms(run(ct.cheb_term_apply, args32))
     bound, bound_fma, gb, gf, gtc = _bounds(
         [_group_work(a[6], a[3] is not None, planes=2, state_bytes=2)
          for a in args])
     del args, args32
-    term_b = _event_ms(lambda: ct.cheb_term_fused(
+    term_b = event_ms(lambda: ct.cheb_term_fused(
         lay, H.tables, H.calls, fused, *pairs, scal), reps=10)
-    term_32 = _event_ms(lambda: ct.cheb_term_fused(
+    term_32 = event_ms(lambda: ct.cheb_term_fused(
         lay, H.tables, H.calls, fused, *pairs32, scal), reps=10)
     print(f"k2-bf16 L={L}: {len(fused)}/{len(lay.groups)} groups | next: "
           f"worst |d| / (2^-8 |x| + 1e-5 max|x|) {worst:.3f} (<= 1) against "
@@ -999,7 +962,7 @@ def phase_evolve(L, dev):
     torch.cuda.reset_peak_memory_stats()
     kg.reset_kernel_launch_count()
     ct.reset_kernel_launch_count()
-    (pair, obs, info), t_all = _sync_time(lambda: pt.evolve_trajectory_kron(
+    (pair, obs, info), t_all = sync_time(lambda: pt.evolve_trajectory_kron(
         m, bits, dt=0.1, n_steps=5, cheb_n=40, device=dev))
     n_k1, n_k2 = kg.kernel_launch_count(), ct.kernel_launch_count()
     peak = torch.cuda.max_memory_allocated()
@@ -1055,7 +1018,7 @@ def phase_evolve_bf16(L, dev, ref):
     torch.cuda.reset_peak_memory_stats()
     kg.reset_kernel_launch_count()
     ct.reset_kernel_launch_count()
-    (pair, obs, info), t_all = _sync_time(lambda: pt.evolve_trajectory_kron(
+    (pair, obs, info), t_all = sync_time(lambda: pt.evolve_trajectory_kron(
         m, bits, dt=0.1, n_steps=5, cheb_n=40, Ebounds=ref["Ebounds"],
         state_dtype=bf16, device=dev))
     n_k1, n_k2 = kg.kernel_launch_count(bf16), ct.kernel_launch_count(bf16)
@@ -1112,7 +1075,7 @@ def phase_kron_sqw(L, dev, psi, E0, info):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kg.reset_kernel_launch_count()
-    (S, sinfo), t = _sync_time(lambda: pt.lanczos_sqw_kron(
+    (S, sinfo), t = sync_time(lambda: pt.lanczos_sqw_kron(
         m, qs, omega, lanc_m=lanc_m, eta=0.1, psi0=psi, E0=E0, info=info,
         device=dev))
     launches = kg.kernel_launch_count(torch.float32)
@@ -1144,15 +1107,15 @@ def phase_kron_obs(L, dev, psi, E0, info):
 
     m = pt.heisenberg_chain(L, nup=L // 2)
     lay = make_sector_kron_layout(m, m.kron_splits)
-    (szsz, si), t_zz = _sync_time(lambda: pt.szsz_matrix_kron(psi, lay))
-    (q, Sq), t_sq = _sync_time(lambda: pt.structure_factor_Sq_kron(psi, lay))
+    (szsz, si), t_zz = sync_time(lambda: pt.szsz_matrix_kron(psi, lay))
+    (q, Sq), t_sq = sync_time(lambda: pt.structure_factor_Sq_kron(psi, lay))
     diag = float((torch.diagonal(szsz) - 0.25).abs().max())
     rows = float(szsz.sum(dim=1).abs().max())
     sym = float((szsz - szsz.T).abs().max())
     nn = float(torch.diagonal(szsz, 1).mean())
     omega = np.linspace(-2.0, 6.0, 200)
     kg.reset_kernel_launch_count()
-    (C, cinfo), t_c = _sync_time(lambda: pt.kpm_correlation_matrix_kron(
+    (C, cinfo), t_c = sync_time(lambda: pt.kpm_correlation_matrix_kron(
         m, omega, n=100, psi0=psi, E0=E0, info=info, sites=(L // 2,),
         device=dev))
     launches = kg.kernel_launch_count(torch.float32)
@@ -1200,7 +1163,7 @@ def phase_typicality(dev):
     L = 20
     m = _evolve_model(L)
     ts = (0.0, 0.5, 1.0)
-    (G, dt) = _sync_time(lambda: pt.typicality_correlation_kron(
+    (G, dt) = sync_time(lambda: pt.typicality_correlation_kron(
         m, 1.0, L // 2, L // 2, ts, device=dev))
     print(f"typicality L={L} beta=1 sites ({L // 2}, {L // 2}): "
           f"{[complex(round(z.real, 6), round(z.imag, 6)) for z in G]} at t "
@@ -1300,8 +1263,8 @@ def _time_csr(L, dev):
     err = float((y - want).abs().max()) / float(want.abs().max())
     if not err <= 1e-6:
         raise RuntimeError(f"L={L}: CSR product off K3 by {err:.3e}")
-    c_ms = _event_ms(lambda: H @ x, reps=10)
-    k_ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+    c_ms = event_ms(lambda: H @ x, reps=10)
+    k_ms = event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
     nnz = H.values().shape[0]
     del H
     torch.cuda.empty_cache()
@@ -1360,13 +1323,13 @@ def phase_k3(L, dev):
         # the plain version is timed with its N-sized diagonal held, as a
         # blocked FlatHamiltonian holds it
         dg = m.diag(dev, torch.float32)
-        k_ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
-        p_ms = _event_ms(
+        k_ms = event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+        p_ms = event_ms(
             lambda: fm.fused_matvec_apply_reference(x, m, dg), reps=3, warm=1)
         del dg
-        k_ms2 = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+        k_ms2 = event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
         y = torch.empty_like(x)
-        c_ms = _event_ms(lambda: y.copy_(x), reps=10)
+        c_ms = event_ms(lambda: y.copy_(x), reps=10)
         comps = 2 if cplx else 1
         state_bytes = N * 4 * comps
         # every bond is active on half of the states: 2 flops per component
@@ -1429,7 +1392,7 @@ def phase_k3_tiles(L, dev):
             if not rel <= 1e-6:
                 raise RuntimeError(f"tile 2^{k}: off the default tile's "
                                    f"result by {rel:.3e}")
-            ms = _event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
+            ms = event_ms(lambda: fm.fused_matvec_apply(x, m, call), reps=10)
             rows.append(f"2^{k}: {ms:.3f} ms "
                         f"({fm.fused_pass_count(plan):.1f} passes)")
         print(f"k3-tiles L={L} {'complex' if cplx else 'real'}: "
@@ -1475,7 +1438,7 @@ def phase_profile_flat(L, dev):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, dt = _sync_time(fn)
+            _, dt = sync_time(fn)
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=12)
         print(f"profile flat L={L} ({what}; {dt * 1e3:.1f} ms on the host "
@@ -1544,7 +1507,7 @@ def phase_flat_main(L, dev):
     torch.cuda.reset_peak_memory_stats()
     fm.reset_kernel_launch_count()
     mv = pt.matvec_fn(m)
-    (E0, psi, info), t_gs = _sync_time(
+    (E0, psi, info), t_gs = sync_time(
         lambda: pt.lanczos_groundstate_restarted(
             mv, N=m.n_states, lanc_m=lanc_m, cycles=6, target_residual=1e-3,
             mask=mask, generator=torch.Generator(device=dev).manual_seed(0)))
@@ -1552,10 +1515,10 @@ def phase_flat_main(L, dev):
     want_gs = info["cycles"] * (2 * lanc_m + 1) + info.get("polished", 0) * (
         lanc_m + 1)
     outside = bool(psi[~mask].any())
-    S, t_sqw = _sync_time(lambda: pt.lanczos_sqw(
+    S, t_sqw = sync_time(lambda: pt.lanczos_sqw(
         psi, m, qs, omega, lanc_m=sqw_m, eta=0.1, matvec=mv))
     n_sqw = fm.kernel_launch_count() - n_gs
-    K, t_kpm = _sync_time(lambda: pt.kpm_sqw(
+    K, t_kpm = sync_time(lambda: pt.kpm_sqw(
         psi, m, qs, omega, kpm_m=kpm_m, E0=E0, matvec=mv,
         generator=torch.Generator(device=dev).manual_seed(7)))
     K = K.cpu().numpy()
@@ -1569,7 +1532,7 @@ def phase_flat_main(L, dev):
         return pt.magnetization_per_site(p, mdl)
 
     t0 = time.perf_counter()
-    (psi_t, obs), t_ev = _sync_time(lambda: pt.evolve_trajectory(
+    (psi_t, obs), t_ev = sync_time(lambda: pt.evolve_trajectory(
         m, pt.domain_wall_state(m, device=dev), dt=0.1, n_steps=n_steps,
         cheb_n=cheb_n, observe=observe,
         generator=torch.Generator(device=dev).manual_seed(7)))
@@ -1625,11 +1588,11 @@ def phase_flat_main(L, dev):
 
     # the same model on the kron layout: two layouts, three kernels
     mk = _evolve_model(L)
-    (Ek, psik, ik, layk), t_k = _sync_time(lambda: pt.groundstate_kron(
+    (Ek, psik, ik, layk), t_k = sync_time(lambda: pt.groundstate_kron(
         mk, lanc_m=lanc_m, cycles=6, target_residual=1e-3))
     # the kron ground state carried to the flat layout: the same state
     # through both layouts' Lanczos S(q, omega) and observables
-    (Sk, _), t_sk = _sync_time(lambda: pt.lanczos_sqw_kron(
+    (Sk, _), t_sk = sync_time(lambda: pt.lanczos_sqw_kron(
         mk, qs, omega, lanc_m=sqw_m, eta=0.1, psi0=psik, E0=Ek))
     psif = kron_to_flat(psik, layk, dev)
     Sf = pt.lanczos_sqw(psif, m, qs, omega, lanc_m=sqw_m, eta=0.1, matvec=mv)
@@ -1665,7 +1628,7 @@ def phase_flat_main(L, dev):
     if not (dzz <= 1e-5 and dSq <= 1e-5):
         raise RuntimeError(f"kron and flat observables differ: szsz {dzz}, "
                            f"S(q) {dSq}")
-    (_, obs_k, _), t_ek = _sync_time(lambda: pt.evolve_trajectory_kron(
+    (_, obs_k, _), t_ek = sync_time(lambda: pt.evolve_trajectory_kron(
         mk, pt.domain_wall_bitstring(mk), dt=0.1, n_steps=n_steps,
         cheb_n=cheb_n))
     dE, dS = abs(E0 - Ek), float(np.abs(obs - obs_k).max())
@@ -1742,7 +1705,7 @@ def phase_compact_oracle(dev):
     for kind in ("xxz-field", "longrange"):
         for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
             m = _compact_model(16, kind, dt)
-            (s_d, d_d, t_d), t_dev = _sync_time(
+            (s_d, d_d, t_d), t_dev = sync_time(
                 lambda: sector_setup(m, dev))
             s_h, d_h, t_h = sector_setup(m, "cpu")
             if not (torch.equal(s_d.cpu(), s_h) and torch.equal(t_d.cpu(),
@@ -1842,13 +1805,13 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     omega = np.linspace(0.0, 4.0, 200)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mv, t_build = _sync_time(lambda: pt.matvec_fn(m, device=dev))
+    mv, t_build = sync_time(lambda: pt.matvec_fn(m, device=dev))
     table_bytes = mv.nbr.numel() * mv.nbr.element_size()
     rec = {"L": L, "N": N, "bonds": m.n_bonds, "build_s": t_build,
            "table_bytes": table_bytes}
     for cplx in (False, True):
         x = _flat_state(m, dev, cplx, L)
-        ms = _event_ms(lambda: mv(x), reps=10)
+        ms = event_ms(lambda: mv(x), reps=10)
         comp = 8 if cplx else 4
         # the table once, the state and the diagonal read, the result
         # written (the diagonal is float32 in either case)
@@ -1865,7 +1828,7 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     err = float((y - want).abs().max()) / float(want.abs().max())
     if not err <= 1e-6:
         raise RuntimeError(f"CSR product off the ell apply by {err:.3e}")
-    csr_ms = _event_ms(lambda: H @ x, reps=10)
+    csr_ms = event_ms(lambda: H @ x, reps=10)
     rec["csr_ms"], rec["nnz"] = csr_ms, H.values().shape[0]
     rec["peak_with_csr_bytes"] = torch.cuda.max_memory_allocated()
     del H, x, y, want
@@ -1879,22 +1842,22 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
           f"{err:.1e}) {csr_ms:.3f} ms against ell {rec['real']['ms']:.3f} "
           f"ms")
     with _EllApplies() as n_gs:
-        (E0, psi, info), t_gs = _sync_time(
+        (E0, psi, info), t_gs = sync_time(
             lambda: pt.lanczos_groundstate_restarted(
                 mv, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
                 generator=torch.Generator(device=dev).manual_seed(0)))
     with _EllApplies() as n_kpm:
-        K, t_kpm = _sync_time(lambda: pt.kpm_sqw(
+        K, t_kpm = sync_time(lambda: pt.kpm_sqw(
             psi, m, qs, omega, a=kinfo["a"], b=kinfo["b"], kpm_m=100,
             E0=E0_main, matvec=mv).cpu().numpy())
     with _EllApplies() as n_sqw:
-        S, t_sqw = _sync_time(lambda: pt.lanczos_sqw(
+        S, t_sqw = sync_time(lambda: pt.lanczos_sqw(
             psi, m, qs, omega, lanc_m=60, eta=0.1, matvec=mv))
     del psi, mv
     torch.cuda.empty_cache()
     me = _compact_model(L, "xxz")
     with _EllApplies() as n_ev:
-        (psi_t, obs), t_ev = _sync_time(lambda: pt.evolve_trajectory(
+        (psi_t, obs), t_ev = sync_time(lambda: pt.evolve_trajectory(
             me, pt.domain_wall_state(me, device=dev), dt=0.1, n_steps=5,
             cheb_n=40, Ebounds=einfo["Ebounds"]))
     peak = torch.cuda.max_memory_allocated()
@@ -1961,7 +1924,7 @@ def phase_ell_chunks(L, dev):
             if not rel <= 1e-6:
                 raise RuntimeError(f"chunk 2^{k}: off the default chunk by "
                                    f"{rel:.2e}")
-            rows.append(f"2^{k}: {_event_ms(f, reps=5):.3f} ms")
+            rows.append(f"2^{k}: {event_ms(f, reps=5):.3f} ms")
         print(f"ell-chunks L={L} {'complex' if cplx else 'real'}: "
               + " | ".join(rows))
 
@@ -1993,7 +1956,7 @@ def _typicality_sample(m, dev, seed, site, ts, **kw):
     import spindynamics_tpu_torch as pt
 
     op = pt.make_spin_operator(site, "z")
-    C, dt = _sync_time(lambda: pt.typicality_correlation_function(
+    C, dt = sync_time(lambda: pt.typicality_correlation_function(
         m, 1.0, op, op, ts, generator=torch.Generator(
             device=dev).manual_seed(seed), kry_m=30, **kw))
     psi_b, _ = pt.thermal_state(
@@ -2091,9 +2054,9 @@ def phase_checkpoint(dev, L=20):
             generator=torch.Generator(device=dev).manual_seed(0),
             device=dev)
 
-    (E_a, psi_a, _), t_a = _sync_time(lambda: gs("whole", 4))
+    (E_a, psi_a, _), t_a = sync_time(lambda: gs("whole", 4))
     gs("cut", 2)
-    (E_b, psi_b, info_b), t_b = _sync_time(lambda: gs("cut", 4))
+    (E_b, psi_b, info_b), t_b = sync_time(lambda: gs("cut", 4))
     gs_equal = E_a == E_b and torch.equal(psi_a, psi_b)
     me = _compact_model(L, "xxz")
     psi0 = pt.domain_wall_state(me, device=dev)
@@ -2226,11 +2189,7 @@ def phase_k1_crossw(L, D, dev, sdt):
                                f"or hi padding rows not 0")
         if got.dtype != sdt:
             raise RuntimeError(f"crossw returned {got.dtype} for {sdt}")
-        if bf16:
-            d, r = _one_rounding(got, want)
-        else:
-            d = float((got - want).abs().max())
-            r = d / max(float(want.abs().max()), 1e-30) / 1e-5
+        d, r = err_ratio(got, want, rounded=bf16)
         abs_err, worst = max(abs_err, d), max(worst, r)
     if kg.kernel_launch_count(sdt, crossw=True) - n0 != 2 * len(args):
         raise RuntimeError("the crossw launches were not counted")
@@ -2253,12 +2212,12 @@ def phase_k1_crossw(L, D, dev, sdt):
         for (T, seed, _, srcs, srcsh, c) in uargs:
             kg.kron_group_apply(T, seed, srcs, srcsh, c)
 
-    k_ms = _event_ms(run(kg.kron_group_apply))
-    p_ms = _event_ms(run(kg.kron_group_apply_reference), reps=10)
-    u_ms = _event_ms(run_unsharded)
-    k_ms2 = _event_ms(run(kg.kron_group_apply))
-    g_ms = _graph_ms(run(kg.kron_group_apply))
-    gu_ms = _graph_ms(run_unsharded)
+    k_ms = event_ms(run(kg.kron_group_apply))
+    p_ms = event_ms(run(kg.kron_group_apply_reference), reps=10)
+    u_ms = event_ms(run_unsharded)
+    k_ms2 = event_ms(run(kg.kron_group_apply))
+    g_ms = graph_ms(run(kg.kron_group_apply))
+    gu_ms = graph_ms(run_unsharded)
     bound, bound_fma, gb, gf, gtc = _bounds(
         [_crossw_work(c, seed is not None, 2 if bf16 else 4,
                       max(0, min(spec.b[gi],
@@ -2301,7 +2260,7 @@ def phase_shard_apply(L, dev):
             bv = bv_random(lay, g, torch.float32, dev)
             y0 = H0(bv)
             scale = max(float(l.abs().max()) for l in y0.leaves)
-            u_ms = _event_ms(lambda: H0(bv))
+            u_ms = event_ms(lambda: H0(bv))
         x = pt.shard_kron_blockvec(bv, spec, mesh)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2362,11 +2321,11 @@ def phase_shard_apply(L, dev):
                                     terms="diag,lo,mid,crossl",
                                     group_filter=tail)
 
-        parts = {name: _event_ms(fn, reps=10) for name, fn in (
+        parts = {name: event_ms(fn, reps=10) for name, fn in (
             ("windows", t_windows), ("seeds", t_seeds),
             ("kernels", t_kernels), ("tails", t_tails))}
         del wins, seeds, G, args
-        full = _event_ms(lambda: H(x), reps=10)
+        full = event_ms(lambda: H(x), reps=10)
         print(f"shard-apply L={L} D={D}: max|d|/max|y| {err:.3e} (<= 1e-5) "
               f"against the unsharded fused apply, hi padding rows 0 | one "
               f"apply {full:.3f} ms (unsharded {u_ms:.3f} ms) = windows "
@@ -2395,9 +2354,9 @@ def phase_shard_main(L, D, dev, E0_main, S_main):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kg.reset_kernel_launch_count()
-    (E0, psi, info, lay), t_gs = _sync_time(lambda: pt.groundstate_kron(
+    (E0, psi, info, lay), t_gs = sync_time(lambda: pt.groundstate_kron(
         m, lanc_m=40, cycles=6, target_residual=1e-3, mesh=mesh))
-    (S, kinfo), t_kpm = _sync_time(lambda: pt.kpm_sqw_kron(
+    (S, kinfo), t_kpm = sync_time(lambda: pt.kpm_sqw_kron(
         m, qs, omega, kpm_m=100, psi0=psi, E0=E0, info=info, mesh=mesh))
     n_k1 = kg.kernel_launch_count()
     n_cw = kg.kernel_launch_count(crossw=True)
@@ -2452,7 +2411,7 @@ def phase_shard_evolve(L, D, dev, ref):
     torch.cuda.reset_peak_memory_stats()
     n_cw0 = kg.kernel_launch_count(crossw=True)
     n_k20 = ct.kernel_launch_count()
-    (pair, obs, info), t_all = _sync_time(lambda: pt.evolve_trajectory_kron(
+    (pair, obs, info), t_all = sync_time(lambda: pt.evolve_trajectory_kron(
         m, bits, dt=0.1, n_steps=5, cheb_n=40, Ebounds=ref["Ebounds"],
         mesh=mesh, observe=observe))
     n_cw = kg.kernel_launch_count(crossw=True) - n_cw0
@@ -2504,7 +2463,7 @@ def phase_dist1(L, dev):
             m, pt.LocalMesh(1, dev))
         g = torch.Generator(device=dev).manual_seed(5)
         bv = bv_random(lay, g, torch.float32, dev)
-        (yp, t_ap) = _sync_time(
+        (yp, t_ap) = sync_time(
             lambda: Hp(pt.shard_kron_blockvec(bv, spec, pmesh)))
         yl = Hl(pt.shard_kron_blockvec(bv, spec, Hl.mesh))
         scale = max(float(l.abs().max()) for l in yl.leaves)
@@ -2571,7 +2530,7 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
     x = _flat_state(m, dev, False, Lc + 1)
     want = ref(x)
     scale = float(want.abs().max())
-    ell_ms = _event_ms(lambda: ref(x), reps=10)
+    ell_ms = event_ms(lambda: ref(x), reps=10)
     if E0_compact is None:
         E0_compact = pt.lanczos_groundstate_restarted(
             ref, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
@@ -2582,14 +2541,14 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
     out = {}
     for name, fn in (("all-gather", pt.sharded_matvec_fn),
                      ("halo", pt.sharded_matvec_halo_fn)):
-        (mv, pm), t_set = _sync_time(lambda: fn(m, mesh))
+        (mv, pm), t_set = sync_time(lambda: fn(m, mesh))
         B = pm.n_states // D
         mesh.reset_counters()
         y = mv(xs)
         c = mesh.counters()
         err = float((y[:N] - want).abs().max()) / scale
         pad_zero = not bool(y[N:].any())
-        ms = _event_ms(lambda: mv(xs), reps=10)
+        ms = event_ms(lambda: mv(xs), reps=10)
         model_bytes = (D * (D - 1) * B * 4 if name == "all-gather"
                        else D * (D - 1) * mv.Hp * 4)
         got_bytes = c["all_gather_bytes"] + c["permute_bytes"]
@@ -2626,12 +2585,12 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
     # the card's halo plan against the host's, at L=24 (the host's np.unique
     # passes at Lc would dominate the phase)
     pm24 = tsa.pad_model(_compact_model(24), D)
-    (_, _, nbr_h), t_tab = _sync_time(lambda: pt.model.sector_setup(pm24,
+    (_, _, nbr_h), t_tab = sync_time(lambda: pt.model.sector_setup(pm24,
                                                                     "cpu"))
-    host, t_host = _sync_time(lambda: tsa.build_halo_plan(
+    host, t_host = sync_time(lambda: tsa.build_halo_plan(
         nbr_h.numpy(), pm24.n_states, D))
     nbr_c = pt.model.sector_setup(pm24, dev)[2]
-    card, t_card = _sync_time(lambda: tsa.build_halo_plan_torch(
+    card, t_card = sync_time(lambda: tsa.build_halo_plan_torch(
         nbr_c, pm24.n_states, D))
     same = card[2] == host[2] and all(
         np.array_equal(a.cpu().numpy(), b) for a, b in zip(card[:2],
@@ -2647,7 +2606,7 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
     m_sh = pt.shard_model(m, mesh)
     mv = pt.matvec_fn(m_sh)
     mesh.reset_counters()
-    (E0, psi, info), t_gs = _sync_time(
+    (E0, psi, info), t_gs = sync_time(
         lambda: pt.lanczos_groundstate_restarted(
             mv, N=m_sh.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
             mask=m_sh.valid_mask(dev),
@@ -2675,20 +2634,20 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
     xe = _flat_state(me, dev, False, Lf + 2)
     want = k3(xe)
     scale = float(want.abs().max())
-    k3_ms = _event_ms(lambda: k3(xe), reps=10)
+    k3_ms = event_ms(lambda: k3(xe), reps=10)
     if E0_flat is None:
         E0_flat = pt.lanczos_groundstate_restarted(
             k3, N=me.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
             mask=me.valid_mask(dev),
             generator=torch.Generator(device=dev).manual_seed(0))[0]
     del k3
-    mvb, t_set = _sync_time(lambda: pt.matvec_fn(me, mesh=mesh))
+    mvb, t_set = sync_time(lambda: pt.matvec_fn(me, mesh=mesh))
     xse = pt.shard_state(xe, mesh)
     mesh.reset_counters()
     y = mvb(xse)
     c = mesh.counters()
     err = float((y - want).abs().max()) / scale
-    ms = _event_ms(lambda: mvb(xse), reps=10)
+    ms = event_ms(lambda: mvb(xse), reps=10)
     n_cross = len(mvb.sharded.crossing)
     ex_bytes = n_cross * me.n_states * 4
     print(f"shard-flat L={Lf} embedded sharded blocked apply on "
@@ -2704,7 +2663,7 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
                            "from one whole shard per crossing bond")
     del y, xse
     fm.reset_kernel_launch_count()
-    (Eb, psib, infob), t_gsb = _sync_time(
+    (Eb, psib, infob), t_gsb = sync_time(
         lambda: pt.lanczos_groundstate_restarted(
             mvb, N=me.n_states, lanc_m=40, cycles=6, target_residual=1e-3,
             mask=me.valid_mask(dev),
@@ -2741,7 +2700,7 @@ def phase_shard_flat(Lc, Lf, D, dev, E0_compact=None, E0_flat=None):
         x = _flat_state(m, dev, False, Lc + 3)
         yl = pt.sharded_matvec_halo_fn(m, pt.LocalMesh(1, dev))[0](x)
         mvp = pt.sharded_matvec_halo_fn(m, pmesh, device=dev)[0]
-        yp, t_p = _sync_time(lambda: mvp(pt.shard_state(x, pmesh)))
+        yp, t_p = sync_time(lambda: mvp(pt.shard_state(x, pmesh)))
         mvg = pt.sharded_matvec_fn(m, pmesh, device=dev)[0]
         yg = mvg(pt.shard_state(x, pmesh))
         torch.cuda.synchronize()
@@ -2788,11 +2747,11 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
 
 
-def _run_module(module, args, timeout=600):
+def _run_module(module, args, timeout=600, all_lines=False):
     """`python -m module args` in its own process, from the root of this
     checkout (where the kernels are already built): (the JSON object of
-    its last stdout line, the launch counts and peak, wall seconds). A
-    non-zero exit raises."""
+    its last stdout line, or with `all_lines` the list of every line's,
+    the launch counts and peak, wall seconds). A non-zero exit raises."""
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", _MODULE_RUNNER, module,
@@ -2803,7 +2762,8 @@ def _run_module(module, args, timeout=600):
         raise RuntimeError(f"{module} {' '.join(args)} exited "
                            f"{res.returncode}:\n{res.stdout[-2000:]}\n"
                            f"{res.stderr[-4000:]}")
-    info = json.loads(res.stdout.strip().splitlines()[-1])
+    out = res.stdout.strip().splitlines()
+    info = [json.loads(ln) for ln in out] if all_lines else json.loads(out[-1])
     rep = [ln for ln in res.stderr.splitlines()
            if ln.startswith("RUN-REPORT ")]
     return info, json.loads(rep[-1][len("RUN-REPORT "):]), wall
@@ -3177,6 +3137,78 @@ def phase_examples(dev, E0_main, full=False):
     return recs
 
 
+BENCH_NAMES = (  # bench.py's headline and default matrix, in order
+    "spmv_nnz_per_s_L32_Sz0_sector_kron", "spmv_nnz_per_s_L28_Sz0_sector_kron",
+    "spmv_nnz_per_s_L26_Sz0_embedded_pallas",
+    "spmv_nnz_per_s_L32_Sz0_sector_kron_bf16",
+    "spmv_nnz_per_s_L32_Sz0_shardmap_d1_kron", "evolve_step_s_L28_Sz0_kron",
+    "evolve_step_s_L28_Sz0_kron_bf16")
+
+
+def phase_bench():
+    """The port's bench as a user runs it, each in its own process:
+    `python -m spindynamics_tpu_torch.bench --time-budget 300` (the
+    default headline and matrix), `scripts.bench_kron 24` and
+    `scripts.mxu_calibrate --bf16`. Held: the headline first and the
+    combined line last, with bench.py's seven names in order and no point
+    skipped; every vs_baseline in (0, 1.05]; the card's name in every
+    line; K1, K2 and K3 launched by the bench and K1's crossw variant not;
+    the calibration's rates finite and positive and its float32 products
+    within 1e-5 of float64. Returns the records."""
+    torch.cuda.empty_cache()  # the processes' memory is their own
+    name = torch.cuda.get_device_name(0)
+    lines, rep, wall = _run_module("spindynamics_tpu_torch.bench",
+                                   ["--time-budget", "300"], timeout=900,
+                                   all_lines=True)
+    points, last = lines[:-1], lines[-1]
+    got = [ln.get("metric") for ln in points]
+    if got != list(BENCH_NAMES) or any("skipped" in ln for ln in lines):
+        raise RuntimeError(f"bench: lines {got}, not bench.py's names "
+                           f"{list(BENCH_NAMES)}")
+    if (last.get("metric") != BENCH_NAMES[0] or [
+            m["metric"] for m in last.get("matrix", [])] != got[1:]):
+        raise RuntimeError("bench: the last line is not the headline with "
+                           "the matrix")
+    for ln in points:
+        t = f"{ln['ms']:.3f} ms" if "ms" in ln else f"{ln['s']:.4f} s"
+        print(f"bench {ln['metric']}: {ln['value']:.6g} {ln['unit']}, {t} | "
+              f"bound {ln['bound_ms']:.3f} ms by {ln['bound_by']}, "
+              f"vs_baseline {ln['vs_baseline']:.4f} | peak "
+              f"{ln['peak_gib']:.2f} GiB | check {ln['check_ratio']:.3f} of "
+              f"its limit | launches {ln['launches']}")
+        if not 0.0 < ln["vs_baseline"] <= 1.05:
+            raise RuntimeError(f"bench {ln['metric']}: vs_baseline "
+                               f"{ln['vs_baseline']} outside (0, 1.05]")
+        if ln["device"]["name"] != name:
+            raise RuntimeError(f"bench {ln['metric']}: device {ln['device']}")
+    if not (rep["K1"] > 0 and rep["K2"] > 0 and rep["K3"] > 0
+            and rep["K1 crossw"] == 0):
+        raise RuntimeError(f"bench: launches {rep}")
+    kron, _, wall_k = _run_module("spindynamics_tpu_torch.scripts.bench_kron",
+                                  ["24"])
+    cal, _, wall_c = _run_module(
+        "spindynamics_tpu_torch.scripts.mxu_calibrate", ["--bf16"])
+    rates = cal["calibration"]
+    print(f"bench: the bench {wall:.1f} s (launches {rep}, peak "
+          f"{rep['peak'] / 2**30:.2f} GiB) | bench_kron 24 {wall_k:.1f} s: "
+          f"kron {kron['kron_ms']:.3f} ms, sector_blocked "
+          f"{kron['blocked_ms']:.3f} ms ({kron['kron_speedup']:.2f}x) | "
+          f"mxu_calibrate {wall_c:.1f} s: TFLOP/s " + ", ".join(
+              f"{m} {rates[m]:.1f} (data sheet {s})"
+              for m, s in cal["data_sheet"]["tflops"].items())
+          + f"; copy {rates['copy_tb_per_s']:.3f} TB/s (data sheet "
+          f"{cal['data_sheet']['tb_per_s']})")
+    if not (all(np.isfinite(v) and v > 0 for v in rates.values())
+            and cal["rel_err"]["highest"] <= 1e-5):
+        raise RuntimeError(f"mxu_calibrate: rates {rates}, relative errors "
+                           f"{cal['rel_err']}")
+    if kron["device"]["name"] != name or cal["device"]["name"] != name:
+        raise RuntimeError("bench_kron / mxu_calibrate: another device")
+    return {"bench": points, "wall_s": wall, "launches": rep,
+            "bench_kron": dict(kron, wall_s=wall_k),
+            "mxu_calibrate": dict(cal, wall_s=wall_c)}
+
+
 def _device_busy(fn):
     """(ms of device activity, device events) of one call of fn(), from
     torch.profiler's CUDA events: what the card did of the call's time."""
@@ -3209,7 +3241,7 @@ def phase_sector_blocked(L, dev, E0_main):
     N = m.n_states
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (s_d, d_d, _), t_dev = _sync_time(lambda: sector_setup(m, dev))
+    (s_d, d_d, _), t_dev = sync_time(lambda: sector_setup(m, dev))
     t0 = time.perf_counter()
     s_h, d_h, _ = sector_setup(m, "cpu")
     t_host = time.perf_counter() - t0
@@ -3218,7 +3250,7 @@ def phase_sector_blocked(L, dev, E0_main):
     if not same:
         raise RuntimeError("sector_blocked: the card's build differs from "
                            "the host build")
-    mv, t_build = _sync_time(lambda: pt.matvec_fn(m, device=dev))
+    mv, t_build = sync_time(lambda: pt.matvec_fn(m, device=dev))
     table_bytes = sum(b.numel() * b.element_size()
                       for n, b in mv.named_buffers() if n.startswith("sb_"))
     rec = {"L": L, "N": N, "Ll": m.lo_bits, "groups": len(mv.layout.groups),
@@ -3240,10 +3272,10 @@ def phase_sector_blocked(L, dev, E0_main):
             raise RuntimeError(f"sector_blocked {tag} apply off ell by {err}")
         sb_ms, ell_ms, csr_ms = [], [], []
         for _ in range(2):  # in turns
-            sb_ms.append(_event_ms(lambda: mv(x), reps=10))
-            ell_ms.append(_event_ms(lambda: ell(xc), reps=10))
+            sb_ms.append(event_ms(lambda: mv(x), reps=10))
+            ell_ms.append(event_ms(lambda: ell(xc), reps=10))
             if not cplx:
-                csr_ms.append(_event_ms(lambda: H @ xc, reps=10))
+                csr_ms.append(event_ms(lambda: H @ xc, reps=10))
         comp = 8 if cplx else 4
         nb = table_bytes + N * (2 * comp + 4)  # state, result, diagonal
         bound = _bound(nb, 0.0)
@@ -3265,7 +3297,7 @@ def phase_sector_blocked(L, dev, E0_main):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with _EllApplies("sector_blocked") as n_gs:
-        (E0, psi, info), t_gs = _sync_time(
+        (E0, psi, info), t_gs = sync_time(
             lambda: pt.lanczos_groundstate_restarted(
                 mv, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
                 generator=torch.Generator(device=dev).manual_seed(0)))
@@ -3290,7 +3322,7 @@ def phase_oracle(dev):
     import spindynamics_tpu_torch as pt
 
     m = pt.heisenberg_chain(16, nup=8)
-    (E0, psi, info, lay), dt = _sync_time(lambda: pt.groundstate_kron(
+    (E0, psi, info, lay), dt = sync_time(lambda: pt.groundstate_kron(
         m, lanc_m=40, cycles=6, target_residual=1e-3, device=dev))
     err = abs(E0 - E0_REF[16])
     print(f"oracle L=16: E0 {E0:.8f} (ref {E0_REF[16]}, |d| {err:.2e} <= "
@@ -3310,10 +3342,10 @@ def phase_main(L, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kg.reset_kernel_launch_count()
-    (E0, psi, info, lay), t_gs = _sync_time(lambda: pt.groundstate_kron(
+    (E0, psi, info, lay), t_gs = sync_time(lambda: pt.groundstate_kron(
         m, lanc_m=40, cycles=6, target_residual=1e-3, device=dev))
     n_gs = kg.kernel_launch_count()
-    (S, kinfo), t_kpm = _sync_time(lambda: pt.kpm_sqw_kron(
+    (S, kinfo), t_kpm = sync_time(lambda: pt.kpm_sqw_kron(
         m, qs, omega, kpm_m=100, psi0=psi, E0=E0, info=info, device=dev))
     launches = kg.kernel_launch_count()
     peak = torch.cuda.max_memory_allocated()
@@ -3410,7 +3442,7 @@ def phase_profile_term(L, dev, info):
         ka = prof.key_averages()
         counts[sdt] = sum(e.count for e in ka if "LaunchKernel" in e.key)
         # wall time per term without the profiler: 10 terms, one sync
-        _, t10 = _sync_time(lambda: [term() for _ in range(10)])
+        _, t10 = sync_time(lambda: [term() for _ in range(10)])
         name = "float32" if sdt == torch.float32 else "bfloat16"
         print(f"profile (one fused Chebyshev term, {name} states, L={L}, "
               f"{len(fused)} of {len(lay.groups)} groups through K2): "
@@ -3447,6 +3479,9 @@ def main(argv=None):
                     help="build the kernels and run the shard-flat phase "
                          "alone (its E0 references solved unsharded); no "
                          "result line")
+    ap.add_argument("--bench-only", action="store_true", dest="bench_only",
+                    help="build the kernels and run the bench phase alone; "
+                         "no result line")
     ap.add_argument("--bf16-steps", action="store_true", dest="bf16_steps",
                     help="the float32 and bfloat16 trajectories at --L and "
                          "the launches of one term of each; no result line")
@@ -3469,8 +3504,10 @@ def main(argv=None):
     from spindynamics_tpu_torch import BlockVec  # (the import pins TF32 off)
 
     phase_build()
-    if args.shard_flat or args.bf16_steps:
+    if args.shard_flat or args.bf16_steps or args.bench_only:
         # measurements of one part, not the smoke: no result line
+        if args.bench_only:
+            print(json.dumps(phase_bench()))
         if args.shard_flat:
             print(json.dumps({"shard_flat": phase_shard_flat(
                 args.L_compact, args.L_flat, args.shards, dev)}))
@@ -3542,6 +3579,7 @@ def main(argv=None):
     cli = phase_cli(args.L, args.L_flat, dev,
                     (E0, E0_flat, einfo["obs"]))
     examples = phase_examples(dev, E0, full=args.examples_full)
+    bench = phase_bench()
     print(json.dumps({"cli": cli}))
     print(json.dumps({"examples": examples}))
     cli_n = {k: sum(r["launches"][k] for r in cli)
@@ -3553,6 +3591,7 @@ def main(argv=None):
     print(json.dumps({"ell": dict(ell, typicality_s=typ["compact"][2],
                                   typicality_applies=typ["compact"][1],
                                   library="torch sparse CSR H @ psi")}))
+    print(json.dumps(bench))
     print(json.dumps({"kernels": [{
         "name": "K1 fused kron group apply",
         "route": "cuda",

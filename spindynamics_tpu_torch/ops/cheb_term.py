@@ -43,6 +43,7 @@ from .kron_group import (
     _KgDesc,
     _state_type,
     _unsupported_terms,
+    apply_H_sector_kron_fused_reference,
     fused_group_set,
     group_seed,
     kron_group_apply_reference,
@@ -52,6 +53,7 @@ from .sector_kron import SectorKronLayout, _lift, apply_H_sector_kron
 __all__ = [
     "cheb_scan_terms_fused",
     "cheb_term_fused",
+    "cheb_term_fused_reference",
     "term_launches",
     "cheb_term_apply",
     "cheb_term_apply_reference",
@@ -297,6 +299,27 @@ def cheb_term_fused(layout, tables, calls, fused, pair_prev, pair_curr, acc,
                                   pair_curr, acc):
         nxt[gi] = cheb_term_apply(*args, scal, out(gi))
     return BlockVec([x[0] for x in nxt]), BlockVec([x[1] for x in nxt])
+
+
+def cheb_term_fused_reference(layout, tables, calls, fused, pair_prev,
+                              pair_curr, acc, scal):
+    """The plain version of cheb_term_fused (same arguments, acc updated in
+    place) in float32: per plane apply_H_sector_kron_fused_reference, whose
+    fused seeds are rounded to the state dtype as K2's are, then the
+    combine x = (h - b curr) 2 a_inv - prev and acc += c x. Returns x as an
+    (re, im) BlockVec pair, before the term's one rounding."""
+    a_inv, b, c_r, c_i = scal
+    x = tuple(BlockVec([(h - b * t.float()) * (2.0 * a_inv) - v.float()
+                        for h, t, v in zip(
+                            apply_H_sector_kron_fused_reference(
+                                list(P.leaves), layout, tables, calls, fused),
+                            P.leaves, V.leaves)])
+              for P, V in zip(pair_curr, pair_prev))
+    for ar, ai, xr, xi in zip(acc[0].leaves, acc[1].leaves, x[0].leaves,
+                              x[1].leaves):
+        ar.add_(c_r * xr).sub_(c_i * xi)
+        ai.add_(c_i * xr).add_(c_r * xi)
+    return x
 
 
 def cheb_scan_terms_fused(layout: SectorKronLayout, tables, calls, pair_prev,

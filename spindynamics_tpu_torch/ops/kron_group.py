@@ -63,6 +63,7 @@ __all__ = [
     "KronHamiltonian",
     "bf16_exact",
     "apply_H_sector_kron_fused",
+    "apply_H_sector_kron_fused_reference",
     "fused_group_plans",
     "fused_group_set",
     "kron_group_apply",
@@ -651,6 +652,33 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
         outs = [o if e is None else round_sum(o, e, sdt)
                 for o, e in zip(outs, extra)]
     return outs
+
+
+def apply_H_sector_kron_fused_reference(blocks, layout: SectorKronLayout,
+                                        tables, calls, fused) -> list:
+    """The plain version of apply_H_sector_kron_fused (no axpy; K1 for the
+    groups in `fused`) in float32, before the apply's one rounding of each
+    output: the other groups through the plain apply and each fused group
+    through K1's plain version, every sum on float32 copies of the leaves,
+    and each fused group's seed stored in the leaves' dtype as the apply
+    stores it (group_seed). For bfloat16 leaves the seed's rounding is part
+    of the function, so an output is one rounding from this value, where
+    the float32 apply of the same leaves is two."""
+    sdt = blocks[0].dtype
+    f32 = [x.float() for x in blocks]
+    tail = frozenset(range(len(layout.groups))) - fused
+    out = (apply_H_sector_kron(f32, None, layout, tables, group_filter=tail)
+           if tail else [None] * len(blocks))
+    for gi in sorted(fused):
+        c = calls[gi]
+        if c.unsupported:
+            raise NotImplementedError("unsupported fused entries are added "
+                                      "after the kernel's rounding")
+        seed = group_seed(blocks, layout, tables, c, None, sdt)
+        out[gi] = kron_group_apply_reference(
+            f32[gi], None if seed is None else seed.float(),
+            [f32[x[0]] for x in c.cross], [f32[x[0]] for x in c.crossh], c)
+    return out
 
 
 def round_sum(a, b, dtype):
