@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from ..solvers.blockvec import BlockVec
+from ..utils.dtypes import lift_bf16
 from .cuda_build import CSRC, build_shared_library
 from .kron_group import (
     _MAX_CROSS,
@@ -48,7 +49,7 @@ from .kron_group import (
     group_seed,
     kron_group_apply_reference,
 )
-from .sector_kron import SectorKronLayout, _lift, apply_H_sector_kron
+from .sector_kron import SectorKronLayout, apply_H_sector_kron
 
 __all__ = [
     "cheb_scan_terms_fused",
@@ -223,10 +224,11 @@ def cheb_term_apply_reference(T, prev, acc, seed, srcs, srcsh, call, scal,
     the epilogue. bfloat16 states are lifted to float32 (K1's sum is not
     rounded on the way), acc takes the unrounded x and the next term is
     rounded once."""
-    Tl = (_lift(T[0]), _lift(T[1]))
+    Tl = (lift_bf16(T[0]), lift_bf16(T[1]))
     h = tuple(kron_group_apply_reference(
-        Tl[p], None if seed is None else _lift(seed[p]),
-        [_lift(s[p]) for s in srcs], [_lift(s[p]) for s in srcsh], call)
+        Tl[p], None if seed is None else lift_bf16(seed[p]),
+        [lift_bf16(s[p]) for s in srcs],
+        [lift_bf16(s[p]) for s in srcsh], call)
         for p in (0, 1))
     return _combine(h, Tl, prev, acc, scal, out)
 

@@ -48,12 +48,12 @@ from torch import nn
 
 from ..solvers.blockvec import BlockVec
 from ..utils.device import resolve_device
+from ..utils.dtypes import lift_bf16
 from .cuda_build import CSRC, build_shared_library
 from .sector_kron import (
     SectorKronLayout,
     _as_tensor,
     _contract,
-    _lift,
     apply_H_sector_kron,
     default_fused_topk,
     kron_tables,
@@ -549,9 +549,9 @@ def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall,
     before that rounding is this function on the lifted inputs."""
     if T.dtype == torch.bfloat16:
         return kron_group_apply_reference(
-            _lift(T), None if seed is None else _lift(seed),
-            [_lift(S) for S in srcs], [_lift(S) for S in srcsh],
-            call, [_lift(S) for S in wins]).to(torch.bfloat16)
+            lift_bf16(T), None if seed is None else lift_bf16(seed),
+            [lift_bf16(S) for S in srcs], [lift_bf16(S) for S in srcsh],
+            call, [lift_bf16(S) for S in wins]).to(torch.bfloat16)
     dt = T.dtype
     out = torch.zeros_like(T) if seed is None else seed.clone()
     d = None
@@ -633,13 +633,13 @@ def apply_H_sector_kron_fused(blocks, layout: SectorKronLayout, tables,
                 outs.append(round_sum(tail_out[gi], hi_tail[gi], sdt))
             else:
                 outs.append(round_sum(tail_out[gi] + hi_tail[gi],
-                                      axpy[0] * _lift(axpy[1][gi]), sdt))
+                                      axpy[0] * lift_bf16(axpy[1][gi]), sdt))
             continue
         call = calls[gi]
         # seed per group, so each is freed once its kernel has consumed it
         seed = group_seed(blocks, layout, tables, call,
                           None if axpy is None
-                          else axpy[0] * _lift(axpy[1][gi]), sdt)
+                          else axpy[0] * lift_bf16(axpy[1][gi]), sdt)
         outs.append(kron_group_apply(
             blocks[gi], seed, [blocks[c[0]] for c in call.cross],
             [blocks[c[0]] for c in call.crossh], call))
@@ -710,7 +710,8 @@ def group_seed(blocks, layout, tables, call, extra, sdt):
                                    terms=call.seed_terms,
                                    group_filter=(gi,))[gi]
         return round_sum(seed, extra, sdt)
-    X = _contract(_lift(blocks[gi]), tables["W"][2][layout.groups[gi][0]], 2)
+    X = _contract(lift_bf16(blocks[gi]),
+                  tables["W"][2][layout.groups[gi][0]], 2)
     if extra is None:
         return torch.add(X, 0.0, out=torch.empty_like(X, dtype=sdt))
     return round_sum(X.add_(0.0), extra, sdt)
@@ -723,7 +724,7 @@ def _unsupported_terms(blocks, layout, tables, calls):
     outs = [None] * len(layout.groups)
     for call in calls:
         for (g_src, pa, pb, a_key, b_key) in call.unsupported:
-            T = _lift(blocks[g_src])
+            T = lift_bf16(blocks[g_src])
             runs_a = layout.cross_runs.get(a_key)
             runs_b = layout.cross_runs.get(b_key)
             acc = outs[call.gi]
@@ -877,5 +878,5 @@ class KronHamiltonian(nn.Module):
                 axpy=axpy))
         out = apply_H_sector_kron(bv.leaves, None, self.layout, tables)
         if s is not None:
-            out = [o + s * _lift(x) for o, x in zip(out, bv0.leaves)]
+            out = [o + s * lift_bf16(x) for o, x in zip(out, bv0.leaves)]
         return BlockVec([o.to(bv.dtype) for o in out])

@@ -27,6 +27,7 @@ import torch
 
 from .. import basis as basis_mod
 from ..model import SpinModel
+from ..utils.dtypes import lift_bf16
 
 __all__ = [
     "SectorKronLayout",
@@ -639,19 +640,11 @@ def _default_tables(layout, dtype, device):
     return cache[key]
 
 
-def _lift(x):
-    """bfloat16 -> float32, anything else as it is. bfloat16 is a storage
-    type of states only: every sum over amplitudes is taken in float32 (a
-    bfloat16 matmul may reduce in bfloat16 on the card and rounds after each
-    chained contraction)."""
-    return x.float() if x.dtype == torch.bfloat16 else x
-
-
 def _contract(T, M, part):
     """Contract the `part` axis of group tensor T [h, m, l] with M[src, dst]
     (einsum "hml,ln->hmn" | "hml,mn->hnl" | "hml,hn->nml"). A bfloat16 T is
     lifted: the result is float32."""
-    T = _lift(T)
+    T = lift_bf16(T)
     M = M.to(T.dtype)
     if part == 0:
         return torch.matmul(T, M)
@@ -716,7 +709,7 @@ def apply_H_sector_kron(psi, diag, layout: SectorKronLayout, tables=None,
 
     def lift(g):
         if g not in lifted:
-            lifted[g] = _lift(G[g])
+            lifted[g] = lift_bf16(G[g])
         return lifted[g]
 
     outs = []

@@ -55,7 +55,6 @@ from ..ops.kron_group import (
 from ..ops.sector_kron import (
     SectorKronLayout,
     _contract,
-    _lift,
     apply_H_sector_kron,
     default_fused_topk,
     kron_tables,
@@ -63,6 +62,7 @@ from ..ops.sector_kron import (
 )
 from ..solvers.blockvec import BlockVec
 from ..utils.device import resolve_device
+from ..utils.dtypes import lift_bf16
 from .mesh import ROWS
 
 # How many groups ahead of the running kernel a hi-axis partial is computed
@@ -342,7 +342,7 @@ def _hi_partial(sh, gi, G, tables, lay, spec, include_cross: bool):
                pb: (b_key, lay.cross_runs.get(b_key))}
         # the local-side factor first (a slice or a product on mid/lo)
         p_loc = pa if pb == 2 else pb
-        X = _lift(G[g_src])
+        X = lift_bf16(G[g_src])
         mid = slice(None)
         key_loc, runs_loc = fac[p_loc]
         if runs_loc is None:
@@ -395,7 +395,7 @@ def _local_group(sh, gi, G, wins, seed, out, tables, lay, cfg):
                      [G[c[0]] for c in call.crossh], call, wins, out=out)
     if call.unsupported:  # rare unfusable hi-local cross entries
         extra = _unsupported_terms(G, lay, tables, [call])[gi]
-        out.copy_(_lift(out) + extra)
+        out.copy_(lift_bf16(out) + extra)
 
 
 class ShardedKronHamiltonian(nn.Module):

@@ -36,8 +36,8 @@ import torch
 from torch import nn
 
 from ..ops.kron_group import KronHamiltonian
-from ..ops.sector_kron import SectorKronLayout, _lift, default_fused_topk
-from ..utils.compensated import vdot2
+from ..ops.sector_kron import SectorKronLayout, default_fused_topk
+from ..utils.compensated import vdot2_leaves
 from ..utils.device import resolve_device
 from .blockvec import (BlockVec, bv_basis_state, bv_random, bv_reduce,
                        bv_zeros_like)
@@ -118,30 +118,18 @@ def kron_planes_matvec_fn(layout: SectorKronLayout, tables=None,
 
 
 def _bv_vdot(x: BlockVec, y: BlockVec):
-    """Compensated sum of per-leaf real dots (f32 at N ~ 1e8 needs it);
-    bfloat16 leaves are read as float32, each lifted once (x is y: once
-    for both sides). Sharded states: summed over the mesh's processes."""
-    def _d(a, b):
-        la = _lift(a)
-        return vdot2(la, la if b is a else _lift(b))
-
-    return bv_reduce(sum(_d(a, b) for a, b in zip(x.leaves, y.leaves)),
-                     x, y)
+    """Compensated <x|y> over all leaves in one call (f32 at N ~ 1e8 needs
+    it; one dot2 kernel launch on the card); bfloat16 leaves are read as
+    float32 (on the CPU each is lifted once, x is y: once for both sides).
+    Sharded states: summed over the mesh's processes."""
+    return bv_reduce(vdot2_leaves(x.leaves, y.leaves), x, y)
 
 
 def pair_dot(x, y):
-    """(Re<x|y>, Im<x|y>) of (re, im) BlockVec pairs, as 0-d tensors.
-    The four dots are summed leaf by leaf in the order of four separate
-    _bv_vdot sums, and each bfloat16 leaf is lifted once for the two
-    dots that read it."""
-    sums = [0, 0, 0, 0]  # <x0|y0>, <x1|y1>, <x0|y1>, <x1|y0>
-    for x0, x1, y0, y1 in zip(x[0].leaves, x[1].leaves, y[0].leaves,
-                              y[1].leaves):
-        x0, x1, y0, y1 = _lift(x0), _lift(x1), _lift(y0), _lift(y1)
-        for i, (a, b) in enumerate(((x0, y0), (x1, y1), (x0, y1),
-                                    (x1, y0))):
-            sums[i] = sums[i] + vdot2(a, b)
-    d00, d11, d01, d10 = (bv_reduce(t, x[0], y[0]) for t in sums)
+    """(Re<x|y>, Im<x|y>) of (re, im) BlockVec pairs, as 0-d tensors: four
+    _bv_vdot sums, one call each."""
+    d00, d11, d01, d10 = (_bv_vdot(a, b) for a, b in (
+        (x[0], y[0]), (x[1], y[1]), (x[0], y[1]), (x[1], y[0])))
     return d00 + d11, d01 - d10
 
 

@@ -72,12 +72,18 @@ def _spread(mesh) -> bool:
 
 
 def _inner_c(x, y, compensated: bool, mesh=None):
-    """Sesquilinear <x|y>, leaf by leaf for BlockVec states. bfloat16
-    leaves are read as float32: neither a Dekker split nor an N-term sum
-    works at 8 mantissa bits. A flat state sharded over the processes of
-    `mesh` sums its rows, then over the mesh."""
+    """Sesquilinear <x|y>. bfloat16 leaves are read as float32: neither a
+    Dekker split nor an N-term sum works at 8 mantissa bits. A compensated
+    BlockVec dot is one call over all leaves (utils/compensated.
+    vdot2_leaves: one dot2 kernel launch on the card), a plain one a dot
+    per leaf. A flat state sharded over the processes of `mesh` sums its
+    rows, then over the mesh."""
     if isinstance(x, BlockVec):
-        return bv_reduce(sum(_inner_c(a, b, compensated)
+        if compensated:
+            from ..utils.compensated import vdot2_leaves
+
+            return bv_reduce(vdot2_leaves(x.leaves, y.leaves), x, y)
+        return bv_reduce(sum(_inner_c(a, b, False)
                              for a, b in zip(x.leaves, y.leaves)), x, y)
     if x.dtype == torch.bfloat16 or y.dtype == torch.bfloat16:
         x, y = x.float(), y.float()
@@ -100,8 +106,7 @@ def _re(z):
 
 def _norm_c(x, compensated: bool, mesh=None):
     if isinstance(x, BlockVec):
-        s = bv_reduce(sum(_inner_c(a, a, compensated) for a in x.leaves), x)
-        return torch.sqrt(torch.clamp(s, min=0))
+        return torch.sqrt(torch.clamp(_inner_c(x, x, compensated), min=0))
     if _spread(mesh):
         return torch.sqrt(torch.clamp(
             _re(_inner_c(x, x, compensated, mesh)), min=0))

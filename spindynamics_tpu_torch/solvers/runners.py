@@ -39,7 +39,7 @@ import torch
 from ..observables import magnetization_per_site
 from ..ops.kron_group import KronHamiltonian
 from ..ops.sector_kron import make_sector_kron_layout
-from ..utils.compensated import vdot2
+from ..utils.compensated import vdot2_leaves
 from ..utils.device import resolve_device
 from ..utils.dtypes import complex_dtype
 from .blockvec import BlockVec, bv_random, bv_reduce
@@ -165,20 +165,20 @@ def _make_bucketed_finalize(layout, mesh=None, n_buckets: int = 4):
             return x if mesh is None else mesh.all_reduce_sum(x)
 
         nrm = torch.sqrt(torch.clamp(
-            total(sum(vdot2(x, x) for x in leaves)), min=0.0))
+            total(vdot2_leaves(leaves, leaves)), min=0.0))
         inv = 1.0 / nrm
         for x in leaves:
             x.mul_(inv.to(x.dtype))
         E = 0
         for b in buckets:
             h = apply_groups(leaves, b)
-            E = E + sum(vdot2(leaves[g], h[g]) for g in b)
+            E = E + vdot2_leaves([leaves[g] for g in b], [h[g] for g in b])
         E = total(E)
         r2 = 0
         for b in buckets:
             h = apply_groups(leaves, b)
-            r2 = r2 + sum(vdot2(h[g] - leaves[g] * E, h[g] - leaves[g] * E)
-                          for g in b)
+            r = [h[g].sub_(leaves[g] * E) for g in b]  # h's own leaves
+            r2 = r2 + vdot2_leaves(r, r)
         resid = torch.sqrt(torch.clamp(total(r2), min=0.0))
         return BlockVec(leaves, mesh), E, resid
 

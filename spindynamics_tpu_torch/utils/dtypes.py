@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["real_dtype", "complex_dtype", "err_ratio"]
+__all__ = ["real_dtype", "complex_dtype", "lift_bf16", "err_ratio"]
 
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -24,6 +24,14 @@ def complex_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype not in _COMPLEX:
         raise TypeError(f"no complex counterpart of {dtype}")
     return _COMPLEX[dtype]
+
+
+def lift_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16 -> float32, anything else as it is. bfloat16 is a storage
+    type of states only: every sum over amplitudes is taken in float32 (a
+    bfloat16 matmul may reduce in bfloat16 on the card and rounds after each
+    chained contraction)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def err_ratio(out: torch.Tensor, ref: torch.Tensor, rounded: bool = False,

@@ -3,8 +3,8 @@
 timed path against the JAX package's plain route on the same numpy-made
 inputs, the bound and value counts against bench.py's formulas on the JAX
 layout, the matrix tokens against bench.py's own dispatch, and the refusal
-to time anything without a card. Timing itself runs on the card only
-(chip_smoke.py's bench phase)."""
+to time anything without a card (scripts/sqw_precision.py's too). Timing
+itself runs on the card only (chip_smoke.py's bench phase)."""
 
 import json
 import os
@@ -290,7 +290,8 @@ def test_tokens_follow_bench_py_dispatch(tmp_path):
 @pytest.mark.parametrize("module", [
     "spindynamics_tpu_torch.bench",
     "spindynamics_tpu_torch.scripts.bench_kron",
-    "spindynamics_tpu_torch.scripts.mxu_calibrate"])
+    "spindynamics_tpu_torch.scripts.mxu_calibrate",
+    "spindynamics_tpu_torch.scripts.sqw_precision"])
 def test_refuses_without_a_card(module):
     """No CUDA device: exit non-zero and print nothing on stdout (no CPU
     time under a device metric)."""
@@ -307,6 +308,7 @@ def test_modules_import_no_jax():
             "import spindynamics_tpu_torch.bench\n"
             "import spindynamics_tpu_torch.scripts.bench_kron\n"
             "import spindynamics_tpu_torch.scripts.mxu_calibrate\n"
+            "import spindynamics_tpu_torch.scripts.sqw_precision\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',"
             " 'spindynamics_tpu'))\n"
