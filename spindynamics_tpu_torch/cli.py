@@ -34,6 +34,10 @@ Where it differs from the JAX CLI:
     world size); no virtual devices are needed.
   - The JSON line's "mode" is the port's own name of the model's mode;
     JAX_MODE maps it to the JAX package's.
+  - The JSON line has one key more, "counters": what the command added to
+    the port's counters (utils/profiling.py: the H applies by route, the
+    host's reads, Lanczos cycles, KPM moments, table builds, kernel
+    launches).
 
 A kernel that fails to build or launch fails the command: nothing here
 catches it or drops to a plain apply.
@@ -172,7 +176,9 @@ def main(argv=None):
     import torch
 
     import spindynamics_tpu_torch as pt
+    from .utils.profiling import counters
 
+    counted = counters()
     device = torch.device(args.device)
     on_card = device.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -400,6 +406,9 @@ def main(argv=None):
         if args.out:
             save(t=ts, C=C)
 
+    info["counters"] = {k: n - counted.get(k, 0)
+                        for k, n in sorted(counters().items())
+                        if n != counted.get(k, 0)}
     print(json.dumps(info))
     return 0
 

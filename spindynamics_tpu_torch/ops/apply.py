@@ -400,8 +400,18 @@ class FlatHamiltonian(nn.Module):
         return self._anchor.device
 
     def forward(self, psi: torch.Tensor) -> torch.Tensor:
+        """One apply, in the span and counter `apply.<backend>` /
+        `applies.<backend>` (utils/profiling.py); a sharded one in those of
+        its sharded module."""
         if self.sharded is not None:
             return self.sharded(psi)
+        from ..utils.profiling import annotate, count
+
+        count("applies." + self.backend)
+        with annotate("apply." + self.backend):
+            return self._forward(psi)
+
+    def _forward(self, psi: torch.Tensor) -> torch.Tensor:
         if self.backend == "fused":
             c = psi.is_complex()
             call = self._calls.get(c)

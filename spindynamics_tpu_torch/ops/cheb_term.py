@@ -79,8 +79,9 @@ class _CtDesc(ctypes.Structure):
 _SRC = CSRC / "cheb_term.cu"
 _HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
-# launches per state dtype: each instance of the kernel has its own count
-_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
+# the launch counter of each state dtype's instance of the kernel
+_COUNTER = {torch.float32: "launches.k2.float32",
+            torch.bfloat16: "launches.k2.bfloat16"}
 
 
 def build_kernel() -> dict:
@@ -106,13 +107,19 @@ def build_kernel() -> dict:
 def kernel_launch_count(dtype=None) -> int:
     """Number of K2 launches since import (or the last reset): of the
     instance for states of `dtype` (torch.float32 or torch.bfloat16), or of
-    both when None."""
-    return sum(_LAUNCHES.values()) if dtype is None else _LAUNCHES[dtype]
+    both when None. The counters `launches.k2.<dtype>`
+    (utils/profiling.py)."""
+    from ..utils.profiling import counters
+
+    c = counters()
+    return sum(c.get(k, 0) for k in (_COUNTER.values() if dtype is None
+                                     else (_COUNTER[dtype],)))
 
 
 def reset_kernel_launch_count() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    from ..utils.profiling import reset_counters
+
+    reset_counters("launches.k2")
 
 
 def term_descriptor(call, device) -> _CtDesc:
@@ -173,6 +180,8 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
                                          call, scal, out)
     if dev.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors; got {dev}")
+    from ..utils.profiling import count
+
     if len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh):
         raise ValueError(f"group {call.gi}: expected {len(call.cross)} + "
                          f"{len(call.crossh)} source pairs")
@@ -213,7 +222,7 @@ def cheb_term_apply(T, prev, acc, seed, srcs, srcsh, call, scal,
     if err != 0:
         raise RuntimeError(f"K2 launch failed for group {call.gi}: "
                            f"cudaError {err}")
-    _LAUNCHES[sdt] += 1
+    count(_COUNTER[sdt])
     return (nr, ni) if out is None else out
 
 

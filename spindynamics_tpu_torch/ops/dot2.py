@@ -162,7 +162,6 @@ def describe(xs, ys, n_sm: int = H100_SMS) -> Dot2Call:
 
 _SRC = CSRC / "dot2.cu"
 _LIB = None
-_LAUNCHES = 0
 _N_SM: dict = {}
 _WORKSPACE: dict = {}
 
@@ -188,13 +187,17 @@ def build_kernel() -> dict:
 
 
 def dot2_launch_count() -> int:
-    """Number of dot2 kernel launches since import (or the last reset)."""
-    return _LAUNCHES
+    """Number of dot2 kernel launches since import (or the last reset):
+    the counter `launches.dot2` (utils/profiling.py)."""
+    from ..utils.profiling import counters
+
+    return counters().get("launches.dot2", 0)
 
 
 def reset_dot2_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    from ..utils.profiling import reset_counters
+
+    reset_counters("launches.dot2")
 
 
 def _workspace(dev: torch.device, stream: int, grid: int) -> torch.Tensor:
@@ -214,7 +217,8 @@ def dot2_launch(xs, ys) -> torch.Tensor:
     if any leaf is float64) on the leaves' card, with no host sync. Every
     leaf must lie on one CUDA device; the launch or the build raises on
     failure. One launch per MAX_LEAVES leaves."""
-    global _LAUNCHES
+    from ..utils.profiling import count
+
     dev = xs[0].device
     if dev.type != "cuda":
         raise ValueError(f"the dot2 kernel runs on CUDA tensors; got {dev}")
@@ -240,5 +244,5 @@ def dot2_launch(xs, ys) -> torch.Tensor:
             err = _LIB.dot2_launch(ctypes.byref(d), ctypes.c_void_p(stream))
             if err != 0:
                 raise RuntimeError(f"dot2 launch failed: cudaError {err}")
-            _LAUNCHES += 1
+            count("launches.dot2")
     return out

@@ -272,7 +272,6 @@ class FusedCall:
 
 _SRC = CSRC / "fused_matvec.cu"
 _LIB = None
-_LAUNCHES = 0
 
 
 def build_kernel() -> dict:
@@ -296,13 +295,17 @@ def build_kernel() -> dict:
 
 
 def kernel_launch_count() -> int:
-    """Number of K3 launches since import (or the last reset)."""
-    return _LAUNCHES
+    """Number of K3 launches since import (or the last reset): the
+    counter `launches.k3` (utils/profiling.py)."""
+    from ..utils.profiling import counters
+
+    return counters().get("launches.k3", 0)
 
 
 def reset_kernel_launch_count() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    from ..utils.profiling import reset_counters
+
+    reset_counters("launches.k3")
 
 
 def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
@@ -316,7 +319,6 @@ def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
     plan for psi's element type with its tables on psi's device; by default
     the model's default plan and its tables are built for this one apply.
     Returns a new tensor; psi is not modified."""
-    global _LAUNCHES
     dev = psi.device
     if dev.type == "cpu":
         return fused_matvec_apply_reference(psi, model)
@@ -357,7 +359,9 @@ def fused_matvec_apply(psi: torch.Tensor, model: SpinModel,
         err = _LIB.k3_launch(ctypes.byref(d), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
-    _LAUNCHES += 1
+    from ..utils.profiling import count
+
+    count("launches.k3")
     return out
 
 

@@ -293,10 +293,12 @@ class _KgDesc(ctypes.Structure):
 _SRC = CSRC / "kron_group.cu"
 _HEADERS = (CSRC / "kron_tile.cuh",)
 _LIB = None
-# launches per state dtype: each instance of the kernel has its own count
-_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
-# of those, the launches of the crossw variant (a launch that reads windows)
-_CROSSW_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
+# the launch counter of each state dtype's instance of the kernel, and of
+# those launches, the crossw variant's (a launch that reads windows)
+_COUNTER = {torch.float32: "launches.k1.float32",
+            torch.bfloat16: "launches.k1.bfloat16"}
+_CROSSW_COUNTER = {torch.float32: "launches.k1_crossw.float32",
+                   torch.bfloat16: "launches.k1_crossw.bfloat16"}
 
 
 def build_kernel() -> dict:
@@ -323,15 +325,21 @@ def kernel_launch_count(dtype=None, crossw: bool = False) -> int:
     """Number of K1 launches since import (or the last reset): of the
     instance for states of `dtype` (torch.float32 or torch.bfloat16), or of
     both when None. `crossw=True` counts only the launches of the crossw
-    variant (those that read windows)."""
-    n = _CROSSW_LAUNCHES if crossw else _LAUNCHES
-    return sum(n.values()) if dtype is None else n[dtype]
+    variant (those that read windows). The counters
+    `launches.k1.<dtype>` and `launches.k1_crossw.<dtype>`
+    (utils/profiling.py)."""
+    from ..utils.profiling import counters
+
+    n = _CROSSW_COUNTER if crossw else _COUNTER
+    c = counters()
+    return sum(c.get(k, 0) for k in (n.values() if dtype is None
+                                     else (n[dtype],)))
 
 
 def reset_kernel_launch_count() -> None:
-    for n in (_LAUNCHES, _CROSSW_LAUNCHES):
-        for k in n:
-            n[k] = 0
+    from ..utils.profiling import reset_counters
+
+    reset_counters("launches.k1", "launches.k1_crossw")
 
 
 class _GroupCall:
@@ -497,6 +505,8 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall, wins=(),
         return res if out is None else out.copy_(res)
     if T.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors; got {T.device}")
+    from ..utils.profiling import count
+
     dev = T.device
     if (len(srcs) != len(call.cross) or len(srcsh) != len(call.crossh)
             or len(wins) != len(call.crossw)):
@@ -535,9 +545,9 @@ def kron_group_apply(T, seed, srcs, srcsh, call: _GroupCall, wins=(),
     if err != 0:
         raise RuntimeError(f"K1 launch failed for group {call.gi}: "
                            f"cudaError {err}")
-    _LAUNCHES[T.dtype] += 1
+    count(_COUNTER[T.dtype])
     if wins:
-        _CROSSW_LAUNCHES[T.dtype] += 1
+        count(_CROSSW_COUNTER[T.dtype])
     return out
 
 
@@ -584,6 +594,9 @@ def kron_group_apply_reference(T, seed, srcs, srcsh, call: _GroupCall,
 
 
 def _group_calls(layout, group_tables, fuse_crossh):
+    from ..utils.profiling import count
+
+    count("build.k1_descriptors")
     memo = {}
     return [_GroupCall(layout, plan, gt, fuse_crossh, bf16_memo=memo)
             for plan, gt in zip(fused_group_plans(layout), group_tables)]
@@ -865,6 +878,17 @@ class KronHamiltonian(nn.Module):
 
     def forward(self, bv: BlockVec, s=None, bv0: BlockVec | None = None,
                 groups=None) -> BlockVec:
+        """One apply, in the span and counter of its route (`apply.k1`,
+        `apply.plain` or `apply.groups`, utils/profiling.py)."""
+        from ..utils.profiling import annotate, count
+
+        route = ("groups" if groups is not None
+                 else "k1" if self.fused else "plain")
+        count("applies." + route)
+        with annotate("apply." + route):
+            return self._forward(bv, s, bv0, groups)
+
+    def _forward(self, bv, s, bv0, groups) -> BlockVec:
         tables, calls = self._state()
         if groups is not None:
             out = apply_H_sector_kron(bv.leaves, None, self.layout, tables,

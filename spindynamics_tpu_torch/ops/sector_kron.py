@@ -617,7 +617,11 @@ def kron_tables(layout: SectorKronLayout, dtype=torch.float32, device="cpu",
     """The layout's matrices as torch tensors on (dtype, device):
     {"W": [{k: T}]*3, "cross": {key: T}, "dvec": [{k: T}]*3,
      "dcross": [({k: T}, {k: T}), ...]}. `memo` (id(numpy) -> tensor) lets
-    several table sets share tensors built from the same array."""
+    several table sets share tensors built from the same array. Each set
+    converted is counted in `build.kron_tables` (utils/profiling.py)."""
+    from ..utils.profiling import count
+
+    count("build.kron_tables")
     memo = {} if memo is None else memo
 
     def conv(d):

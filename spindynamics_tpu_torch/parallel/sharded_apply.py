@@ -253,6 +253,16 @@ class ShardedEllHamiltonian(nn.Module):
 
     def forward(self, psi: torch.Tensor, chunk: int | None = None
                 ) -> torch.Tensor:
+        """One apply, in the span `apply.sharded_ell` and the counter
+        `applies.sharded_ell` (utils/profiling.py)."""
+        from ..utils.profiling import annotate, count
+
+        count("applies.sharded_ell")
+        with annotate("apply.sharded_ell"):
+            return self._forward(psi, chunk)
+
+    def _forward(self, psi: torch.Tensor, chunk: int | None
+                 ) -> torch.Tensor:
         out = psi * self.diag.to(real_dtype(psi.dtype))
         if self.nbr.shape[1] == 0:
             return out

@@ -131,6 +131,15 @@ class ShardedBlockedHamiltonian(nn.Module):
         return out + float(self.model.hop_J[bidx]) * (mask * y)
 
     def forward(self, psi: torch.Tensor) -> torch.Tensor:
+        """One apply, in the span `apply.sharded_blocked` and the counter
+        `applies.sharded_blocked` (utils/profiling.py)."""
+        from ..utils.profiling import annotate, count
+
+        count("applies.sharded_blocked")
+        with annotate("apply.sharded_blocked"):
+            return self._forward(psi)
+
+    def _forward(self, psi: torch.Tensor) -> torch.Tensor:
         p = self.plan
         rdtype = real_dtype(psi.dtype)
         n = psi.shape[0] // (p.T * p.W)

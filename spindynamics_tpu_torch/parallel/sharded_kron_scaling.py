@@ -574,6 +574,18 @@ class ShardedKronHamiltonian(nn.Module):
         return to_sharded(bv, self.spec, self.mesh)
 
     def forward(self, bv: BlockVec, groups=None) -> BlockVec:
+        """One apply, in the span and counter of its route
+        (`apply.sharded_k1`, `apply.sharded_plain` or
+        `apply.sharded_groups`, utils/profiling.py)."""
+        from ..utils.profiling import annotate, count
+
+        route = ("sharded_groups" if groups is not None
+                 else "sharded_k1" if self.fused else "sharded_plain")
+        count("applies." + route)
+        with annotate("apply." + route):
+            return self._forward(bv, groups)
+
+    def _forward(self, bv: BlockVec, groups) -> BlockVec:
         lay, spec, cfg, mesh = self.layout, self.spec, self.cfg, self.mesh
         want = None if groups is None else frozenset(groups)
         order = sorted(range(len(lay.groups)) if want is None else want)

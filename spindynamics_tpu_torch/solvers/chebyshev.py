@@ -42,31 +42,50 @@ def rescaling_params(Emin: float, Emax: float, safety: float = 1.0):
 
 def _moment_scan(matvec_rescaled: Callable, phi, M: int, chi,
                  compensated: bool = False) -> torch.Tensor:
-    """mu_n = <chi| T_n(H~) |phi> for n = 0..M-1, one matvec per moment."""
+    """mu_n = <chi| T_n(H~) |phi> for n = 0..M-1, one matvec per moment.
+    Each step's spans, beside the rescaled apply's own: `kpm.recur` (the
+    three-term step) and `kpm.dots`."""
+    from ..utils.profiling import annotate
+
     mus = [_inner_c(chi, phi, compensated)]
     v_prev, v_curr = phi, matvec_rescaled(phi)
     mus.append(_inner_c(chi, v_curr, compensated))
     for _ in range(M - 2):
-        v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
-        mus.append(_inner_c(chi, v_next, compensated))
-        v_prev, v_curr = v_curr, v_next
+        h = matvec_rescaled(v_curr)
+        with annotate("kpm.recur"):
+            h = 2.0 * h  # H~ v dropped here, as in one expression
+            v_next = h - v_prev
+            del h
+        with annotate("kpm.dots"):
+            mus.append(_inner_c(chi, v_next, compensated))
+            v_prev, v_curr = v_curr, v_next  # v_prev freed inside the span
     return torch.stack(mus)[:M]
 
 
 def _moment_scan_doubled(matvec_rescaled: Callable, phi, M: int,
                          compensated: bool = False) -> torch.Tensor:
     """mu_0..mu_{M-1} via the product identities
-    mu_{2n} = 2 <T_n|T_n> - mu_0, mu_{2n+1} = 2 <T_{n+1}|T_n> - mu_1."""
+    mu_{2n} = 2 <T_n|T_n> - mu_0, mu_{2n+1} = 2 <T_{n+1}|T_n> - mu_1.
+    Spans as _moment_scan."""
+    from ..utils.profiling import annotate
+
     half = (M + 1) // 2  # need T_0..T_half
     mu0 = _re(_inner_c(phi, phi, compensated))
     v_prev, v_curr = phi, matvec_rescaled(phi)
     mu1 = _re(_inner_c(phi, v_curr, compensated))
     mus = [mu0, mu1]
     for _ in range(max(half, 1)):  # n = 1..half: mu_2..mu_{2 half + 1}
-        v_next = 2.0 * matvec_rescaled(v_curr) - v_prev
-        mus.append(2.0 * _re(_inner_c(v_curr, v_curr, compensated)) - mu0)
-        mus.append(2.0 * _re(_inner_c(v_next, v_curr, compensated)) - mu1)
-        v_prev, v_curr = v_curr, v_next
+        h = matvec_rescaled(v_curr)
+        with annotate("kpm.recur"):
+            h = 2.0 * h  # H~ v dropped here, as in one expression
+            v_next = h - v_prev
+            del h
+        with annotate("kpm.dots"):
+            mus.append(2.0 * _re(_inner_c(v_curr, v_curr, compensated))
+                       - mu0)
+            mus.append(2.0 * _re(_inner_c(v_next, v_curr, compensated))
+                       - mu1)
+            v_prev, v_curr = v_curr, v_next  # v_prev freed inside the span
     return torch.stack(mus)[:M]
 
 
@@ -76,12 +95,18 @@ def chebyshev_moments(matvec_rescaled, phi, M: int,
     """Diagonal KPM moments mu_n = <phi|T_n(H~)|phi> (real parts).
 
     doubling_trick=True produces M moments from ~M/2 matvecs through the
-    product identities (see _moment_scan_doubled)."""
+    product identities (see _moment_scan_doubled). The span
+    `kpm.moments`; the counter of that name counts the M moments."""
+    from ..utils.profiling import annotate, count
+
     if compensated is None:
         compensated = _default_compensated(phi.dtype)
-    if not doubling_trick:
-        return _re(_moment_scan(matvec_rescaled, phi, M, phi, compensated))
-    return _moment_scan_doubled(matvec_rescaled, phi, M, compensated)
+    count("kpm.moments", M)
+    with annotate("kpm.moments"):
+        if not doubling_trick:
+            return _re(_moment_scan(matvec_rescaled, phi, M, phi,
+                                    compensated))
+        return _moment_scan_doubled(matvec_rescaled, phi, M, compensated)
 
 
 def chebyshev_cross_moments(matvec_rescaled, chi, phi, M: int,
@@ -89,13 +114,17 @@ def chebyshev_cross_moments(matvec_rescaled, chi, phi, M: int,
                             compensated: bool | None = None) -> torch.Tensor:
     """Cross moments mu_n = <chi|T_n(H~)|phi> ||phi|| with phi normalized
     first (ref src/TimeEvolution/KPM.jl:119-163). Returns real parts."""
+    from ..utils.profiling import annotate, count
+
     if compensated is None:
         compensated = _default_compensated(phi.dtype)
-    norm_phi = torch.linalg.vector_norm(phi)
-    if normalize_phi:
-        phi = phi / norm_phi
-    mus = _moment_scan(matvec_rescaled, phi, M, chi, compensated)
-    return _re(mus) * norm_phi
+    count("kpm.moments", M)
+    with annotate("kpm.moments"):
+        norm_phi = torch.linalg.vector_norm(phi)
+        if normalize_phi:
+            phi = phi / norm_phi
+        mus = _moment_scan(matvec_rescaled, phi, M, chi, compensated)
+        return _re(mus) * norm_phi
 
 
 def jackson_kernel(M: int) -> np.ndarray:
@@ -130,7 +159,16 @@ def kpm_reconstruct(mu, omega, a: float, b: float, kernel: str = "jackson",
     Conventions: kpm_sw (doubling=True, density_2_over_a=False, x clamped to
     +-0.999) and evaluate_chebyshev_series (doubling=False,
     density_2_over_a=True, zero outside |x| >= 1). mu may be batched
-    [..., M]; omega is [W]. Returns [..., W]."""
+    [..., M]; omega is [W]. Returns [..., W]. The span `kpm.reconstruct`."""
+    from ..utils.profiling import annotate
+
+    with annotate("kpm.reconstruct"):
+        return _reconstruct(mu, omega, a, b, kernel, doubling,
+                            density_2_over_a, clamp, clip_nonneg)
+
+
+def _reconstruct(mu, omega, a, b, kernel, doubling, density_2_over_a, clamp,
+                 clip_nonneg):
     mu = torch.as_tensor(mu)
     M = mu.shape[-1]
     dtype, dev = mu.dtype, mu.device

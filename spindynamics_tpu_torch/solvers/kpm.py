@@ -33,10 +33,17 @@ __all__ = [
 
 
 def _rescaled(mv, a: float, b: float):
+    """v -> (H v - b v) / a, the shift and scale in the span
+    `kpm.rescale` beside the apply's own."""
+    from ..utils.profiling import annotate
+
     inv_a = 1.0 / a
 
     def mvr(v):
-        return (mv(v) - v * b) * inv_a
+        hv = mv(v)
+        with annotate("kpm.rescale"):
+            hv = hv - v * b  # H v dropped here, as in one expression
+            return hv * inv_a
 
     return mvr
 
@@ -75,12 +82,17 @@ def kpm_sqw(psi0: torch.Tensor, model: SpinModel, q_list, omega,
     axis of H, as in the reference; pass `E0` (the energy of psi0) to
     evaluate at excitation energies instead, comparable with lanczos_sqw.
     Without (a, b) the rescaling comes from estimate_energy_bounds (random
-    start from `generator`). Returns [nq, n_omega]."""
+    start from `generator`). Returns [nq, n_omega]. Spans `kpm.bounds`
+    (the window, when drawn here), `kpm.phi` (S^z_q psi0, normalized) and
+    `kpm.reconstruct`."""
+    from ..utils.profiling import annotate
+
     if matvec is None:
         matvec = matvec_fn(model, backend, device=psi0.device)
     if a is None or b is None:
-        a, b = _default_rescaling(model, matvec, psi0.device, lanc_m=lanc_m,
-                                  generator=generator)
+        with annotate("kpm.bounds"):
+            a, b = _default_rescaling(model, matvec, psi0.device,
+                                      lanc_m=lanc_m, generator=generator)
     if E0 is not None:
         omega = np.asarray(omega, np.float64) + E0
     cdtype = complex_dtype(psi0.dtype)
@@ -88,9 +100,10 @@ def kpm_sqw(psi0: torch.Tensor, model: SpinModel, q_list, omega,
     mvr = _rescaled(matvec, a, b)
     rows = []
     for q in q_list:
-        phi = sz_q_vector(model, psi0, float(q), dtype=cdtype)
-        nrm = torch.linalg.vector_norm(phi)
-        phi = phi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
+        with annotate("kpm.phi"):
+            phi = sz_q_vector(model, psi0, float(q), dtype=cdtype)
+            nrm = torch.linalg.vector_norm(phi)
+            phi = phi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
         mu = chebyshev_moments(mvr, phi, kpm_m, doubling_trick=doubling_trick)
         S = kpm_reconstruct(mu, omega, a, b, kernel=kernel, doubling=True,
                             density_2_over_a=False)

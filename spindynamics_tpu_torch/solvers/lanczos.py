@@ -166,7 +166,13 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
     -beta_{j-1} v_{j-1} is folded into the apply's kernel seed, and alpha =
     <v_j|w> then carries -beta <v_j|v_{j-1}> (identical up to the f32
     orthogonality floor, the standard Lanczos form). Both passes take the
-    same branch. A flat state's dots go over `matvec`'s mesh (_spread)."""
+    same branch. A flat state's dots go over `matvec`'s mesh (_spread).
+
+    Spans (utils/profiling.py), one per statement group of a step:
+    `lanczos.alpha`, `lanczos.orth`, `lanczos.reorth`, `lanczos.beta`,
+    `lanczos.next`, beside the apply's own `apply.*`."""
+    from ..utils.profiling import annotate, host_read
+
     dtype = v1.dtype
     rdtype = real_dtype(dtype)
     dev = v1.device
@@ -198,26 +204,33 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
         idx = np.arange(m)
 
     v_prev, v_curr = bv_zeros_like(v1), v1
-    beta_prev = zero
+    beta_prev, neg_beta = zero, -zero
     active = torch.ones((), dtype=torch.bool, device=dev)
     last_alpha = zero
     alphas, betas, actives = [], [], []
     for j in range(m):
         if axpy_ok:
-            w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
-            w = w - alpha * v_curr
+            w = matvec(v_curr, neg_beta, v_prev)
+            with annotate("lanczos.alpha"):
+                alpha = _re(_inner_c(v_curr, w, compensated, mesh))
+            with annotate("lanczos.orth"):
+                w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
-            w = w - alpha * v_curr - beta_prev * v_prev
+            with annotate("lanczos.alpha"):
+                alpha = _re(_inner_c(v_curr, w, compensated, mesh))
+            with annotate("lanczos.orth"):
+                w = w - alpha * v_curr - beta_prev * v_prev
         if full_reorth:
-            w = _project_out(V, w, j, mesh)
-        beta = _norm_c(w, compensated, mesh)
+            with annotate("lanczos.reorth"):
+                w = _project_out(V, w, j, mesh)
+        with annotate("lanczos.beta"):
+            beta = _norm_c(w, compensated, mesh)
 
         if selective:
-            al, be, bp = npdt(float(alpha)), npdt(float(beta)), npdt(
-                float(beta_prev))
+            with host_read():
+                al, be, bp = npdt(float(alpha)), npdt(float(beta)), npdt(
+                    float(beta_prev))
             a_hist[j], b_hist[j] = al, be
             # beta_j om_next[i] = b[i] om[i+1] + (a[i] - a[j]) om[i]
             #                     + b[i-1] om[i-1] - beta_{j-1} om_prev[i]
@@ -234,27 +247,35 @@ def _lanczos_scan(matvec: Callable, v1, m: int, tol, compensated: bool,
                                npdt(0)).astype(npdt)
             om_next[j] = eps  # against v_j: locally orthogonal
             if om_next.max() > sqrt_eps:
-                w = _project_out(V, w, j, mesh)
+                with annotate("lanczos.reorth"):
+                    w = _project_out(V, w, j, mesh)
                 om_next = np.where(idx <= j, eps, npdt(0)).astype(npdt)
-                beta = _norm_c(w, compensated, mesh)
+                with annotate("lanczos.beta"):
+                    beta = _norm_c(w, compensated, mesh)
                 # later omega steps couple through b_hist[j]: keep the
                 # post-sweep beta there
-                b_hist[j] = npdt(float(beta))
+                with host_read():
+                    b_hist[j] = npdt(float(beta))
             om_prev, om_curr = om_curr, om_next
 
-        ok = torch.logical_and(active, beta > tol)
-        inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny), zero)
-        v_next = w * torch.where(ok, inv, zero)
-        alpha_out = torch.where(active, alpha, last_alpha)
-        beta_out = torch.where(ok, beta, zero)
-        alphas.append(alpha_out)
-        betas.append(beta_out)
-        actives.append(active)
-        if use_buffer and j + 1 < m:
-            _store(V, j + 1, v_next)
-        v_prev, v_curr = v_curr, v_next
-        beta_prev, active, last_alpha = beta_out, ok, alpha_out
-        del w
+        with annotate("lanczos.next"):
+            ok = torch.logical_and(active, beta > tol)
+            inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny),
+                              zero)
+            v_next = w * torch.where(ok, inv, zero)
+            alpha_out = torch.where(active, alpha, last_alpha)
+            beta_out = torch.where(ok, beta, zero)
+            if axpy_ok:
+                neg_beta = -beta_out  # the next apply's axpy coefficient
+            alphas.append(alpha_out)
+            betas.append(beta_out)
+            actives.append(active)
+            if use_buffer and j + 1 < m:
+                _store(V, j + 1, v_next)
+            # the dropped vectors are freed here, inside the span
+            v_prev, v_curr = v_curr, v_next
+            beta_prev, active, last_alpha = beta_out, ok, alpha_out
+            del w
     if store_basis and isinstance(v1, BlockVec):
         V = v1.like(V)  # stacked [m, ...] leaves
     return (torch.stack(alphas), torch.stack(betas), torch.stack(actives),
@@ -285,8 +306,12 @@ def lanczos_iteration(matvec: Callable, v0, m: int, tol: float = 1e-12,
         compensated = _default_compensated(v1.dtype)
     alphas, betas, active, V = _lanczos_scan(matvec, v1, m, tol, compensated,
                                              reorth, store_basis)
-    m_eff = int(active.sum())
-    return LanczosFactorization(alphas.cpu(), betas.cpu(), m_eff, v0_norm, V)
+    from ..utils.profiling import host_read
+
+    with host_read():
+        m_eff = int(active.sum())
+        alphas, betas = alphas.cpu(), betas.cpu()
+    return LanczosFactorization(alphas, betas, m_eff, v0_norm, V)
 
 
 def lanczos_tridiag(matvec, v0, lanc_m: int = 100, tol: float = 1e-12):
@@ -316,17 +341,26 @@ def tridiag_eigh(alphas, betas, m_eff=None):
 def _twopass(matvec, v1, lanc_m: int, tol, compensated: bool):
     """Pass 1 (alpha, beta), the host tridiagonal solve, pass 2 (psi =
     sum_j y_j v_j) from the normalized v1. Returns (lowest Ritz value,
-    unnormalized psi, m_eff, evals)."""
-    alphas, betas, active, _ = _lanczos_scan(matvec, v1, lanc_m, tol,
-                                             compensated)
-    m_eff = int(active.sum())
-    evals, evecs = tridiag_eigh(alphas.cpu(), betas.cpu(), m_eff)
-    idx = int(np.argmin(evals))
-    y = np.zeros(lanc_m)
-    y[:m_eff] = evecs[:, idx]
-    psi = _second_pass_accumulate(
-        matvec, v1, torch.as_tensor(y, dtype=real_dtype(v1.dtype),
-                                    device=v1.device), lanc_m, compensated)
+    unnormalized psi, m_eff, evals). Spans `lanczos.pass1`,
+    `lanczos.tridiag` (the host's eig), `lanczos.pass2`."""
+    from ..utils.profiling import annotate, host_read
+
+    with annotate("lanczos.pass1"):
+        alphas, betas, active, _ = _lanczos_scan(matvec, v1, lanc_m, tol,
+                                                 compensated)
+    with host_read():
+        m_eff = int(active.sum())
+        alphas, betas = alphas.cpu(), betas.cpu()
+    with annotate("lanczos.tridiag"):
+        evals, evecs = tridiag_eigh(alphas, betas, m_eff)
+        idx = int(np.argmin(evals))
+        y = np.zeros(lanc_m)
+        y[:m_eff] = evecs[:, idx]
+    with annotate("lanczos.pass2"):
+        psi = _second_pass_accumulate(
+            matvec, v1, torch.as_tensor(y, dtype=real_dtype(v1.dtype),
+                                        device=v1.device), lanc_m,
+            compensated)
     return float(evals[idx]), psi, m_eff, evals
 
 
@@ -411,27 +445,35 @@ def lanczos_groundstate(matvec, N: int | None, lanc_m: int = 100,
     takes N = the padded length and mask = the padded model's valid_mask()
     (which zeroes its pad rows), and returns psi as the rows of this
     process's shards."""
+    from ..utils.profiling import annotate, host_read
+
     v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
     if reorth is True:
         reorth = "full"
-    fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol, reorth=reorth,
-                            store_basis=True, compensated=compensated)
-    evals, evecs = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
-    k = fac.m_eff
-    idx = int(np.argmin(evals))
-    E0 = float(evals[idx])
-    y = np.zeros(lanc_m)
-    y[:k] = evecs[:, idx]
+    with annotate("lanczos.pass1"):
+        fac = lanczos_iteration(matvec, v0, lanc_m, tol=tol, reorth=reorth,
+                                store_basis=True, compensated=compensated)
+    with annotate("lanczos.tridiag"):
+        evals, evecs = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+        k = fac.m_eff
+        idx = int(np.argmin(evals))
+        E0 = float(evals[idx])
+        y = np.zeros(lanc_m)
+        y[:k] = evecs[:, idx]
     V = fac.basis
-    yt = torch.as_tensor(y, dtype=real_dtype(V.dtype), device=V.device)
-    if isinstance(V, BlockVec):
-        psi = V.map(lambda l: torch.tensordot(yt.to(l.dtype), l, dims=1))
-    else:
-        psi = yt.to(V.dtype) @ V
     mesh = _flat_mesh(matvec)
-    nrm = _norm_c(psi, False, mesh)
-    psi = psi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
-    residual = float(_norm_c(matvec(psi) - psi * E0, False, mesh))
+    with annotate("lanczos.finalize"):
+        yt = torch.as_tensor(y, dtype=real_dtype(V.dtype), device=V.device)
+        if isinstance(V, BlockVec):
+            psi = V.map(lambda l: torch.tensordot(yt.to(l.dtype), l,
+                                                  dims=1))
+        else:
+            psi = yt.to(V.dtype) @ V
+        nrm = _norm_c(psi, False, mesh)
+        psi = psi / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
+        resid = _norm_c(matvec(psi) - psi * E0, False, mesh)
+    with host_read():
+        residual = float(resid)
     return E0, psi, {"residual": residual, "m_eff": k, "evals": evals}
 
 
@@ -448,12 +490,16 @@ def lanczos_groundstate_twopass(matvec, N: int, lanc_m: int = 100,
     v0 = _start_vector(matvec, N, dtype, generator, mask, v0, device)
     if compensated is None:
         compensated = _default_compensated(v0.dtype)
+    from ..utils.profiling import annotate, host_read
+
     v1, _ = _normalize_start(v0, donate=True, mesh=_flat_mesh(matvec))
     del v0
     E0, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
-    psi, _, residual = _ritz_finalize(matvec, psi)
-    return E0, psi, {"residual": float(residual), "m_eff": m_eff,
-                     "evals": evals}
+    with annotate("lanczos.finalize"):
+        psi, _, residual = _ritz_finalize(matvec, psi)
+    with host_read():
+        residual = float(residual)
+    return E0, psi, {"residual": residual, "m_eff": m_eff, "evals": evals}
 
 
 def restart_cycle(matvec, psi, lanc_m: int, tol: float = 1e-12,
@@ -462,17 +508,26 @@ def restart_cycle(matvec, psi, lanc_m: int, tol: float = 1e-12,
     are normalized in place). Returns (E0, ritz_psi, info).
 
     finalize(matvec, psi_unnorm) -> (psi, E, resid) overrides _ritz_finalize
-    (runners.groundstate_kron passes the bucketed variant)."""
+    (runners.groundstate_kron passes the bucketed variant). The span
+    `lanczos.cycle` and the counter `lanczos.cycles`; the finalize in the
+    span `lanczos.finalize`."""
+    from ..utils.profiling import annotate, count, host_read
+
+    count("lanczos.cycles")
     if compensated is None:
         compensated = _default_compensated(psi.dtype)
-    v1, _ = _normalize_start(psi, donate=True, mesh=_flat_mesh(matvec))
-    del psi
-    E_ritz, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol, compensated)
-    del E_ritz
-    fin = _ritz_finalize if finalize is None else finalize
-    psi, E, resid = fin(matvec, psi)
-    return float(E), psi, {"residual": float(resid), "m_eff": m_eff,
-                           "evals": evals}
+    with annotate("lanczos.cycle"):
+        v1, _ = _normalize_start(psi, donate=True, mesh=_flat_mesh(matvec))
+        del psi
+        E_ritz, psi, m_eff, evals = _twopass(matvec, v1, lanc_m, tol,
+                                             compensated)
+        del E_ritz
+        fin = _ritz_finalize if finalize is None else finalize
+        with annotate("lanczos.finalize"):
+            psi, E, resid = fin(matvec, psi)
+        with host_read():
+            E, resid = float(E), float(resid)
+    return E, psi, {"residual": resid, "m_eff": m_eff, "evals": evals}
 
 
 def lanczos_groundstate_restarted(matvec, v0=None, lanc_m: int = 40,
@@ -489,7 +544,10 @@ def lanczos_groundstate_restarted(matvec, v0=None, lanc_m: int = 40,
     Chebyshev-filter polish takes over when restarts stall at the rounding
     floor. `v0` (a BlockVec or a flat tensor) is consumed; without it a
     flat random start is drawn from (N, dtype, generator, mask) as in the
-    JAX package. Stops early at `target_residual`."""
+    JAX package. Stops early at `target_residual`. Each polish step in
+    the span `lanczos.polish` and the counter of that name."""
+    from ..utils.profiling import annotate, count, host_read
+
     if v0 is None:
         if N is None:
             raise ValueError("pass a start vector v0, or N for a random one")
@@ -530,12 +588,16 @@ def lanczos_groundstate_restarted(matvec, v0=None, lanc_m: int = 40,
         hi = float(evals[-1]) + 0.05 * width
         fin = _ritz_finalize if finalize is None else finalize
         for _ in range(max(cycles, 4)):
-            psi = _chebyshev_filter(matvec, psi, lo_cut, hi, lanc_m)
-            psi, E, resid = fin(matvec, psi)
-            E0 = float(E)
-            info["residual"] = float(resid)
+            count("lanczos.polish")
+            with annotate("lanczos.polish"):
+                psi = _chebyshev_filter(matvec, psi, lo_cut, hi, lanc_m)
+                with annotate("lanczos.finalize"):
+                    psi, E, resid = fin(matvec, psi)
+                with host_read():
+                    E0, resid = float(E), float(resid)
+            info["residual"] = resid
             info["polished"] = info.get("polished", 0) + 1
-            if float(resid) < target_residual:
+            if resid < target_residual:
                 break
     return E0, psi, info
 
@@ -543,7 +605,11 @@ def lanczos_groundstate_restarted(matvec, v0=None, lanc_m: int = 40,
 def _chebyshev_filter(matvec, psi, lo_cut: float, hi: float, degree: int):
     """Amplify spectral weight below `lo_cut` by T_degree of H mapped so
     [lo_cut, hi] -> [-1, 1] (single-vector Chebyshev-filtered subspace
-    iteration; needs no orthogonality). Renormalizes the pair each step."""
+    iteration; needs no orthogonality). Renormalizes the pair each step.
+    Its vector operations in the span `lanczos.filter`, beside the
+    apply's own."""
+    from ..utils.profiling import annotate
+
     dtype, dev = real_dtype(psi.dtype), psi.device
     mesh = _flat_mesh(matvec)
     c = torch.tensor((hi + lo_cut) / 2.0, dtype=dtype, device=dev)
@@ -551,14 +617,20 @@ def _chebyshev_filter(matvec, psi, lo_cut: float, hi: float, degree: int):
     tiny = torch.finfo(dtype).tiny
 
     def hmap(v):
-        return (matvec(v) - v * c) / h
+        hv = matvec(v)
+        with annotate("lanczos.filter"):
+            hv = hv - v * c  # H v dropped here, as in one expression
+            return hv / h
 
     t_prev = psi
     t_curr = hmap(psi)
     for _ in range(max(degree - 1, 0)):
-        t_next = 2.0 * hmap(t_curr) - t_prev
-        inv = 1.0 / torch.clamp(_norm_c(t_next, False, mesh), min=tiny)
-        t_prev, t_curr = t_curr * inv, t_next * inv
+        t_next = hmap(t_curr)
+        with annotate("lanczos.filter"):
+            t_next = 2.0 * t_next  # H~ t dropped here, as in one expression
+            t_next = t_next - t_prev
+            inv = 1.0 / torch.clamp(_norm_c(t_next, False, mesh), min=tiny)
+            t_prev, t_curr = t_curr * inv, t_next * inv
     return t_curr
 
 
@@ -580,27 +652,39 @@ def _second_pass_accumulate(matvec, v1, y, m: int, compensated: bool = False):
     """Re-run the Lanczos recurrence from v1 (the same vectors) accumulating
     psi = sum_j y_j v_j without storing the basis. `compensated` and the
     axpy branch must match pass 1 so the basis is reproduced bit for bit."""
+    from ..utils.profiling import annotate
+
     rdtype = real_dtype(v1.dtype)
     tiny = torch.finfo(rdtype).tiny
     zero = torch.zeros((), dtype=rdtype, device=v1.device)
     axpy_ok = getattr(matvec, "supports_axpy", False)
     mesh = _flat_mesh(matvec)
     v_prev, v_curr = bv_zeros_like(v1), v1
-    beta_prev = zero
+    beta_prev, neg_beta = zero, -zero
     acc = bv_zeros_like(v1)
     for j in range(m):
-        acc = acc + v_curr * y[j]
+        with annotate("lanczos.accumulate"):
+            acc = acc + v_curr * y[j]
         if axpy_ok:
-            w = matvec(v_curr, -beta_prev, v_prev)
-            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
-            w = w - alpha * v_curr
+            w = matvec(v_curr, neg_beta, v_prev)
+            with annotate("lanczos.alpha"):
+                alpha = _re(_inner_c(v_curr, w, compensated, mesh))
+            with annotate("lanczos.orth"):
+                w = w - alpha * v_curr
         else:
             w = matvec(v_curr)
-            alpha = _re(_inner_c(v_curr, w, compensated, mesh))
-            w = w - alpha * v_curr - beta_prev * v_prev
-        beta = _norm_c(w, compensated, mesh)
-        inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny), zero)
-        v_prev, v_curr = v_curr, w * inv
-        beta_prev = beta
-        del w
+            with annotate("lanczos.alpha"):
+                alpha = _re(_inner_c(v_curr, w, compensated, mesh))
+            with annotate("lanczos.orth"):
+                w = w - alpha * v_curr - beta_prev * v_prev
+        with annotate("lanczos.beta"):
+            beta = _norm_c(w, compensated, mesh)
+        with annotate("lanczos.next"):
+            inv = torch.where(beta > 0, 1.0 / torch.clamp(beta, min=tiny),
+                              zero)
+            v_prev, v_curr = v_curr, w * inv
+            beta_prev = beta
+            if axpy_ok:
+                neg_beta = -beta
+            del w
     return acc

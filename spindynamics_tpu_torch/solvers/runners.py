@@ -56,19 +56,24 @@ def _kron_matvec_for(lay, fused: bool, dtype, device, mesh=None):
     `mesh`, the ShardedKronHamiltonian over it (K1 on each shard's local
     block, or the plain apply there). K1 takes float32 (and bfloat16)
     states only: on the CPU a `fused` solve in float64 runs the plain
-    apply, as in the JAX package; on CUDA it raises."""
+    apply, as in the JAX package; on CUDA it raises. Built in the span
+    `build.kron_hamiltonian`."""
+    from ..utils.profiling import annotate
+
     if fused and dtype != torch.float32:
         if device.type == "cuda":
             raise ValueError(f"fused=True runs K1, which takes float32 "
                              f"states, not {dtype}: pass fused=False or "
                              "dtype=torch.float32")
         fused = False
-    if mesh is not None:
-        from ..parallel.sharded_kron_scaling import ShardedKronHamiltonian
+    with annotate("build.kron_hamiltonian"):
+        if mesh is not None:
+            from ..parallel.sharded_kron_scaling import (
+                ShardedKronHamiltonian)
 
-        return ShardedKronHamiltonian(lay, mesh, dtype=dtype, device=device,
-                                      fused=fused)
-    return KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
+            return ShardedKronHamiltonian(lay, mesh, dtype=dtype,
+                                          device=device, fused=fused)
+        return KronHamiltonian(lay, dtype=dtype, device=device, fused=fused)
 
 
 def _state_dtype_of(model):
@@ -225,10 +230,13 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
 
     `device` defaults to psi0's device, else the mesh's, else the card
     (pass device="cpu" for a CPU run). Returns (S [nq, n_omega] numpy, info
-    dict with E0/bounds/a/b)."""
+    dict with E0/bounds/a/b). Spans `kpm.bounds`, `kpm.phi`,
+    `kpm.rescale` (the shift and scale after each apply),
+    `kpm.reconstruct`, and `sync` around the host's reads."""
     from .chebyshev import chebyshev_moments, kpm_reconstruct
     from .lanczos import lanczos_iteration, tridiag_eigh
     from ..observables_kron import bv_sz_q_weights
+    from ..utils.profiling import annotate, host_read
 
     device = resolve_device(device, psi0, mesh)
     if psi0 is None or E0 is None:
@@ -244,13 +252,14 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
     shard, to_mesh = mv.shard, mv.to_mesh
 
     if bounds is None:
-        g7 = torch.Generator(device=device).manual_seed(7)
-        fac = lanczos_iteration(
-            mv, bv_random(lay, g7, torch.float32, device, shard=shard),
-            bounds_m)
-        evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
-        lo, hi = min(float(evals.min()), float(E0)), float(evals.max())
-        pad = safety * 0.5 * (hi - lo) + 1e-6
+        with annotate("kpm.bounds"):
+            g7 = torch.Generator(device=device).manual_seed(7)
+            fac = lanczos_iteration(
+                mv, bv_random(lay, g7, torch.float32, device, shard=shard),
+                bounds_m)
+            evals, _ = tridiag_eigh(fac.alphas, fac.betas, fac.m_eff)
+            lo, hi = min(float(evals.min()), float(E0)), float(evals.max())
+            pad = safety * 0.5 * (hi - lo) + 1e-6
     else:
         (lo, hi), pad = bounds, 0.0
     a = (hi - lo + 2 * pad) / 2.0
@@ -259,7 +268,10 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
     bb = torch.tensor(b, dtype=torch.float32, device=device)
 
     def mvr(bv):
-        return (mv(bv) - bv * bb) * a_inv
+        hv = mv(bv)
+        with annotate("kpm.rescale"):
+            hv = hv - bv * bb  # H bv dropped here, as in one expression
+            return hv * a_inv
 
     psi0 = to_mesh(psi0).map(
         lambda l: l.to(device=device, dtype=torch.float32))
@@ -267,9 +279,11 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
 
     S_rows, n2s = [], []
     for q in q_list:
-        phi_r, phi_i, n2r, n2i = _phi_planes(
-            psi0, bv_sz_q_weights(lay, float(q), hi_lens, mesh=mesh))
-        n2 = float(n2r) + float(n2i)
+        with annotate("kpm.phi"):
+            phi_r, phi_i, n2r, n2i = _phi_planes(
+                psi0, bv_sz_q_weights(lay, float(q), hi_lens, mesh=mesh))
+        with host_read():
+            n2 = float(n2r) + float(n2i)
         n2s.append(n2)
         if n2 <= 0.0:
             S_rows.append(np.zeros(kpm_m, np.float32))  # placeholder row
@@ -280,7 +294,8 @@ def kpm_sqw_kron(model, q_list, omega, kpm_m: int = 100, lanc_m: int = 40,
                                 doubling_trick=doubling_trick)
               + chebyshev_moments(mvr, phi_i * inv, kpm_m,
                                   doubling_trick=doubling_trick))
-        S_rows.append(mu.cpu().numpy().astype(np.float32))
+        with host_read():
+            S_rows.append(mu.cpu().numpy().astype(np.float32))
 
     om = np.asarray(omega, np.float64) + float(E0)
     S = np.zeros((len(q_list), len(np.atleast_1d(omega))), np.float32)

@@ -1,6 +1,27 @@
 """Profiling and timing helpers (port of spindynamics_tpu/utils/profiling.py):
-thin wrappers of torch.profiler, CUDA-event timers and the card's data
-sheet.
+thin wrappers of torch.profiler, the port's spans and counters,
+CUDA-event timers and the card's data sheet.
+
+Spans. `annotate(name)` is the port's one span primitive: a
+torch.profiler.record_function range while a profiler session runs (the
+benchmark's `--trace 1` slices, a user's `trace(...)`), else one shared
+no-op context. The spans are events of the profiler's own session, so they
+lie on the device trace's clock. Their names are dotted by layer: `apply.*`
+(one per H apply, named by its route), `lanczos.*` and `kpm.*` (the
+solvers' statement groups and phases), `build.*`, and `sync` around each
+device-to-host read (`host_read`).
+
+Counters. `count(name, n)` adds to one registry of plain integers, always
+on: the kernels' launches (`launches.k1.<dtype>`, `launches.k1_crossw.
+<dtype>`, `launches.k2.<dtype>`, `launches.k3`, `launches.dot2`, read back
+by each kernel module's launch-count function), `applies.<route>`,
+`syncs`, `lanczos.cycles`, `lanczos.polish`, `kpm.moments`,
+`build.kron_tables` and `build.k1_descriptors`. `counters()` is a copy of
+the registry.
+
+The port's modules import this one inside the functions that use it, as
+they import their kernels' wrappers: importing the package loads none of
+the measurement helpers.
 
 `slope_timer` is not ported: it cancels a remote accelerator's dispatch
 latency by timing two chain lengths, where the card is timed with CUDA
@@ -21,7 +42,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["trace", "annotate", "sync_time", "event_ms", "graph_ms",
+__all__ = ["trace", "annotate", "host_read", "count", "counters",
+           "reset_counters", "sync_time", "event_ms", "graph_ms",
            "card_info", "HBM_BYTES_PER_S", "F32_FLOPS_PER_S",
            "BF16_TC_FLOPS_PER_S"]
 
@@ -50,10 +72,46 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: dict = {}
+
+
 def annotate(name: str):
-    """Named range for solver phases: the ops run inside show under `name`
-    in the profiler's table and timeline (torch.profiler.record_function)."""
-    return record_function(name)
+    """The span `name`: while a profiler session runs, a
+    torch.profiler.record_function range (the operations enqueued inside
+    show under `name` in its table and timeline); otherwise the shared
+    no-op context, which costs one check."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
+
+
+def host_read():
+    """The span of one device-to-host read (`sync`, whose length is the
+    host's wait for the device), counted in `syncs`."""
+    count("syncs")
+    return annotate("sync")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of every counter: {name: count}."""
+    return dict(_COUNTERS)
+
+
+def reset_counters(*prefixes: str) -> None:
+    """Zero every counter, or those named by `prefixes` (a name, or the
+    names under it: "launches.k1" zeroes "launches.k1.float32")."""
+    if not prefixes:
+        _COUNTERS.clear()
+        return
+    for name in list(_COUNTERS):
+        if any(name == p or name.startswith(p + ".") for p in prefixes):
+            del _COUNTERS[name]
 
 
 def _require_card(device=None) -> None:

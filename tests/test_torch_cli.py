@@ -52,7 +52,7 @@ def _both(capsys, args, tmp_path=None):
             a += ["--out", str(tmp_path / f"{tag}.npz")]
         outs.append(_run(mod, capsys, a))
     j, t = outs
-    assert set(j) == set(t)
+    assert set(t) == set(j) | {"counters"}  # the port's counters besides
     assert tcli.JAX_MODE[t["mode"]] == j["mode"]
     for k in ("L", "nup", "dim", "n_states"):
         assert t[k] == j[k], k
@@ -139,6 +139,22 @@ def test_typicality_against_exact_trace(capsys, tmp_path, layout, samples):
     assert np.abs(nj["C"] - ex).max() < tol
     assert np.abs(nt["C"] - ex).max() < tol
     assert t["C0"] == pytest.approx(float(ex[0].real), abs=tol)
+
+
+@pytest.mark.parametrize("layout,route", [("compact", "ell"),
+                                          ("sector_kron", "plain")])
+def test_json_line_counts_applies_and_syncs(capsys, layout, route):
+    """The line's "counters": one stored-basis Lanczos of lanc_m steps is
+    lanc_m applies and one for the residual, two host reads (the
+    tridiagonal's coefficients and the residual); a second command in the
+    same process reports its own counts, not the sum."""
+    args = ["groundstate", "--L", "10", "--sz0", "--f64", "--lanc-m", "30",
+            "--layout", layout, "--device", "cpu"]
+    first = _run(tcli, capsys, args)["counters"]
+    assert first[f"applies.{route}"] == 31 and first["syncs"] == 2
+    assert not [k for k in first if k.startswith("applies.")
+                and k != f"applies.{route}"]
+    assert _run(tcli, capsys, args)["counters"] == first
 
 
 def test_mesh_matches_unsharded_and_jax(capsys, tmp_path):
