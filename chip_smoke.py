@@ -29,8 +29,8 @@ Phases (one line each; a failed phase raises and the script exits non-zero
 with no result line):
   device   require CUDA; the card's name and power limit from nvidia-smi
   build    compile K1 (csrc/kron_group.cu), K2 (csrc/cheb_term.cu), K3
-           (csrc/fused_matvec.cu) and the dot2 kernel (csrc/dot2.cu), one
-           nvcc each, all at once
+           (csrc/fused_matvec.cu), the dot2 kernel (csrc/dot2.cu) and the
+           ell kernel (csrc/ell_apply.cu), one nvcc each, all at once
   k1       K1 against its plain torch version on the card, at L=16 (every
            group) and at --L (the fused groups), with and without the
            Lanczos axpy seed; pad slots exactly 0; a second launch on the
@@ -105,14 +105,22 @@ with no result line):
            equal to the host build bit for bit, the ell apply on the card
            against the CPU apply (1e-12 / 1e-6 of max|y|, real and complex)
   compact-main  --L-compact (default 28) compact Heisenberg chain, Sz=0: the
-           torch build's time and table bytes; ms per ell apply, float32
-           and complex64, beside its bytes bound (table + 3 N-sized passes)
-           and a torch sparse CSR product of the same matrix; the restarted
-           ground state (E0 within 1e-4 of main's kron E0, residual <= 1e-3),
-           kpm_sqw at main's q-points, omega grid and rescaling (within 5e-2
-           of main's peak), lanczos_sqw (3 q x 60, rows positive), the 5-step
-           domain-wall trajectory of evolve's XXZ chain from its bounds
-           (<Sz_i> within 1e-5 of the kron run), peak memory
+           torch build's time and table bytes; then the ell phase on its
+           module (below); the restarted ground state (E0 within 1e-4 of
+           main's kron E0, residual <= 1e-3), kpm_sqw at main's q-points,
+           omega grid and rescaling (within 5e-2 of main's peak),
+           lanczos_sqw (3 q x 60, rows positive), the 5-step domain-wall
+           trajectory of evolve's XXZ chain from its bounds (<Sz_i> within
+           1e-5 of the kron run), each solve's ell applies each one kernel
+           launch by `launches.ell.<dtype>`, peak memory
+  ell      (inside compact-main, or alone with --ell-only) the ell kernel
+           (csrc/ell_apply.cu) at --L-compact, float32 and complex64: its
+           CUDA-event time beside its bytes bound (the int32 table once,
+           the state and diagonal read, the result written), the plain
+           version's (the chunked torch gather) and a torch sparse CSR
+           product of the same matrix (library_ms), each held to the plain
+           result within 1e-6 of max|y|; repeats bit-identical; one launch
+           an apply
   flat-typicality  <Sz_a(t) Sz_a(0)>_beta=1 at --L-flat on the embedded
            layout (K3) and the compact layout (ell): finite, Im C(0) ~ 0,
            C(0) = szsz of the thermal state of the same seed; L=12 mean of 8
@@ -202,18 +210,16 @@ with no result line):
            of one Chebyshev term, and of flat Lanczos and Chebyshev steps
   k3-tiles (--k3-tiles) K3's time at --L-flat for tiles of 2^8..2^15
            (2^14 complex64), each held to the default tile's result
-  ell-chunks (--ell-chunks) the ell apply's time at --L-compact for row
-           chunks of 2^16..2^22, each equal to the default chunk's result
   kron-tiles (--kron-tiles) K1's and K2's time at --L with 32- and 64-row
            output tiles beside the kernel's rule; results identical
 Then one JSON line with the cli commands' records (wall and solve
 seconds, peak memory, launches per kernel), one with the examples' records
 (argv, wall seconds, peak memory, K1 and K2 launches, checks), one with
-the sector_blocked
-apply's numbers and one with the ell apply's (plain torch, not kernels:
-their times, bounds, CSR time and apply counts), one with the bench
-phase's records (`bench`: the bench's lines; its process's launches,
-bench_kron's and the calibration's records), one with the kernel
+the sector_blocked apply's numbers (plain torch, not a kernel) and one
+with the compact path's (the ell kernel's times, bounds, CSR time, and
+each solve's applies and kernel launches), one with the bench phase's records (`bench`: the bench's
+lines; its process's launches, bench_kron's and the calibration's
+records), one with the kernel
 records (`cli_launches`, `examples_launches`: the kernel's launches in
 the cli and examples phases), and last the device line.
 
@@ -227,7 +233,9 @@ same launches, measured beside the tensor-core route (`tc_ms_beside_fma`).
 The dot2 kernel's record is the main path's <x|y> at --L (its bound the
 bytes alone; `launches` from the main phase) with the phase's other
 readings beside it; it replaces no pl.pallas_call, so `replaces` names the
-JAX package's compensated dot, an XLA fusion there.
+JAX package's compensated dot, an XLA fusion there. The ell kernel's
+record is the ell phase's, its `launches` the kernel launches counted over
+compact-main's solves (one an apply, or the phase raises).
 
 The sharded, compact, sector-blocked, cli, examples and bench phases come
 on top of the earlier ones, none of which is cut in depth for them (the cli
@@ -240,15 +248,15 @@ phase about 1; the limit is 20), with --examples-full about 2 more.
 
 Usage: python3 chip_smoke.py [--L 28] [--L-flat 26] [--L-compact 28]
                              [--shards 4] [--profile] [--k3-tiles]
-                             [--kron-tiles] [--ell-chunks]
-                             [--examples-full]
+                             [--kron-tiles] [--examples-full]
        python3 chip_smoke.py --bench-only | --shard-flat | --bf16-steps
-                             | --dot2-only [--L 28]
+                             | --dot2-only [--L 28] | --ell-only
+                             [--L-compact 28]
        python3 chip_smoke.py --k3-against DIR [--L-flat 26]
 (--k3-against runs only the k3 phase, of the checkout at DIR and of this
-one in turns; --bench-only, --shard-flat, --bf16-steps and --dot2-only
-build the kernels and run their phases alone; none of them prints a result
-line.)
+one in turns; --bench-only, --shard-flat, --bf16-steps, --dot2-only and
+--ell-only build the kernels and run their phases alone; none of them
+prints a result line.)
 """
 
 from __future__ import annotations
@@ -346,11 +354,13 @@ def phase_build():
 
     from spindynamics_tpu_torch.ops import cheb_term as ct
     from spindynamics_tpu_torch.ops import dot2 as d2
+    from spindynamics_tpu_torch.ops import ell_apply as ea
     from spindynamics_tpu_torch.ops import fused_matvec as fm
     from spindynamics_tpu_torch.ops import kron_group as kg
 
     builds = (("K1", kg.build_kernel), ("K2", ct.build_kernel),
-              ("K3", fm.build_kernel), ("dot2", d2.build_kernel))
+              ("K3", fm.build_kernel), ("dot2", d2.build_kernel),
+              ("ell", ea.build_kernel))
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source
         futs = [(name, ex.submit(fn)) for name, fn in builds]
         infos = [(name, f.result()) for name, f in futs]
@@ -1909,9 +1919,8 @@ def phase_flat_main(L, dev):
 class _EllApplies:
     """Counts the applies of every FlatHamiltonian of one backend (default
     'ell') while active (a global forward hook): the applies of a phase,
-    the runners' own modules included. The ell and sector_blocked applies
-    are plain torch, not kernels: these counts are the phase's apply
-    counts, not kernel launches."""
+    the runners' own modules included. The sector_blocked apply is plain
+    torch; an ell apply on the card is one ell kernel launch."""
 
     def __init__(self, backend="ell"):
         self.n = 0
@@ -2046,16 +2055,109 @@ def kron_references(L, dev):
     return E0, S, kinfo, dict(einfo, obs=obs)
 
 
+def phase_ell(L, dev, mv=None):
+    """The ell kernel on the module `mv` of the compact Heisenberg chain at
+    L (built here when not given), float32 and complex64: its time beside
+    its bytes bound (the int32 table once, the state and diagonal read,
+    the result written), the plain version's and a torch sparse CSR
+    product's of the same matrix (the library yardstick, complex as a
+    complex64 CSR matrix), each held to the plain result within 1e-6 of
+    max|y|; two applies of one input equal in every bit; one launch an
+    apply. Returns {"float32" / "complex64": {ms, plain_ms, library_ms,
+    bound_ms, errors}, "bonds", "N", "nnz", "peak_with_csr_bytes"}."""
+    import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import ell_apply as ea
+
+    if mv is None:
+        mv = pt.matvec_fn(_compact_model(L), device=dev)
+    m = mv.model
+    N, nb = mv.nbr.shape
+    table_bytes = mv.nbr.numel() * mv.nbr.element_size()
+    H = csr_from_ell(mv)
+    rec = {"L": L, "N": N, "bonds": nb, "nnz": H.values().shape[0],
+           "tile_rows": ea.tile_rows(nb)}
+    for cplx in (False, True):
+        tag = "complex64" if cplx else "float32"
+        x = _flat_state(m, dev, cplx, L)
+
+        def plain():
+            return ea.ell_apply_plain(x, mv.nbr, mv.diag, mv.hop_J)
+
+        want = plain()
+        ymax = float(want.abs().max())
+        n0 = ea.ell_launch_count()
+        y = mv(x)
+        if ea.ell_launch_count() - n0 != 1:
+            raise RuntimeError(f"ell {tag}: {ea.ell_launch_count() - n0} "
+                               "launches in one apply, not 1")
+        if not torch.equal(y, mv(x)):
+            raise RuntimeError(f"ell {tag}: two applies of one input "
+                               "differ")
+        Hx = H.to(x.dtype) if cplx else H
+        errs = {"kernel": float((y - want).abs().max()) / ymax,
+                "library": float((Hx @ x - want).abs().max()) / ymax}
+        for what, e in errs.items():
+            if not e <= 1e-6:
+                raise RuntimeError(f"ell {tag}: the {what} off the plain "
+                                   f"version by {e:.3e} of max|y|")
+        comp = x.element_size()
+        bound = _bound(table_bytes + N * (2 * comp + 4), 0.0)
+        r = rec[tag] = {"ms": event_ms(lambda: mv(x), reps=20),
+                        "plain_ms": event_ms(plain, reps=5),
+                        "library_ms": event_ms(lambda: Hx @ x, reps=10),
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "errors": errs}
+        del Hx, want, y, x
+        print(f"ell L={L} {tag}: kernel {r['ms']:.4f} ms | bound "
+              f"{bound[0]:.4f} ms by {bound[1]} "
+              f"({100 * bound[0] / r['ms']:.1f}%) | plain {r['plain_ms']:.3f}"
+              f" ms | torch sparse CSR {r['library_ms']:.3f} ms "
+              f"({rec['nnz']} non-zeros) | max|d| / max|y| kernel "
+              f"{errs['kernel']:.1e}, CSR {errs['library']:.1e} (<= 1e-6) | "
+              f"{rec['tile_rows']} rows a tile")
+    rec["peak_with_csr_bytes"] = torch.cuda.max_memory_allocated()
+    del H
+    torch.cuda.empty_cache()
+    return rec
+
+
+class _EllLaunches(_EllApplies):
+    """_EllApplies that also reads the ell kernel's launch counters
+    (`launches.ell.<dtype>`) over the block, and raises on leaving unless
+    every ell apply was one launch: `launches` is {dtype: launches}."""
+
+    def __enter__(self):
+        from spindynamics_tpu_torch.utils.profiling import counters
+
+        self._c0 = counters()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from spindynamics_tpu_torch.utils.profiling import counters
+
+        super().__exit__(*exc)
+        c0, c1 = self._c0, counters()
+        self.launches = {k[len("launches.ell."):]: c1[k] - c0.get(k, 0)
+                         for k in c1 if k.startswith("launches.ell.")
+                         and c1[k] != c0.get(k, 0)}
+        if exc[0] is None and sum(self.launches.values()) != self.n:
+            raise RuntimeError(f"{self.n} ell applies made "
+                               f"{self.launches} kernel launches, not one "
+                               "each")
+
+
 def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     """The compact layout at L through the entry points: the torch build of
     the Heisenberg chain of `main` (states, diagonal, ELL table) and the
-    ell apply's times beside its bound and a CSR product of the same
-    matrix; the restarted ground state against main's kron E0, kpm_sqw at
-    main's q-points, omega grid and rescaling against main's KPM S(q,
-    omega), lanczos_sqw (3 q x 60); then the 5-step domain-wall trajectory
-    of the XXZ chain of `evolve` from its bounds against the kron run's
-    <Sz_i>. Returns the ell record."""
+    ell phase on its module; the restarted ground state against main's
+    kron E0, kpm_sqw at main's q-points, omega grid and rescaling against
+    main's KPM S(q, omega), lanczos_sqw (3 q x 60); then the 5-step
+    domain-wall trajectory of the XXZ chain of `evolve` from its bounds
+    against the kron run's <Sz_i>. Every ell apply of the solves is one
+    kernel launch (raises otherwise). Returns the ell record, the ell
+    phase's under "kernel"."""
     import spindynamics_tpu_torch as pt
+    from spindynamics_tpu_torch.ops import ell_apply as ea
 
     m = _compact_model(L)
     N = m.n_states
@@ -2066,55 +2168,29 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     mv, t_build = sync_time(lambda: pt.matvec_fn(m, device=dev))
     table_bytes = mv.nbr.numel() * mv.nbr.element_size()
     rec = {"L": L, "N": N, "bonds": m.n_bonds, "build_s": t_build,
-           "table_bytes": table_bytes}
-    for cplx in (False, True):
-        x = _flat_state(m, dev, cplx, L)
-        ms = event_ms(lambda: mv(x), reps=10)
-        comp = 8 if cplx else 4
-        # the table once, the state and the diagonal read, the result
-        # written (the diagonal is float32 in either case)
-        bound = _bound(table_bytes + N * (2 * comp + 4), 0.0)
-        tag = "complex" if cplx else "real"
-        rec[tag] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
-        print(f"compact-main L={L} ell apply {tag}: {ms:.3f} ms (median of "
-              f"10) | bound {bound[0]:.3f} ms by {bound[1]} "
-              f"({(table_bytes + N * (2 * comp + 4)) / 1e9:.3f} GB) | "
-              f"{ms / bound[0]:.2f}x the bound")
-    x = _flat_state(m, dev, False, L)
-    H = csr_from_ell(mv)
-    y, want = H @ x, mv(x)
-    err = float((y - want).abs().max()) / float(want.abs().max())
-    if not err <= 1e-6:
-        raise RuntimeError(f"CSR product off the ell apply by {err:.3e}")
-    csr_ms = event_ms(lambda: H @ x, reps=10)
-    rec["csr_ms"], rec["nnz"] = csr_ms, H.values().shape[0]
-    rec["peak_with_csr_bytes"] = torch.cuda.max_memory_allocated()
-    del H, x, y, want
-    torch.cuda.empty_cache()
+           "table_bytes": table_bytes, "kernel": phase_ell(L, dev, mv)}
     # the solvers' peak: the module's table, states and diagonal, and the
     # vectors of each solve
     torch.cuda.reset_peak_memory_stats()
     print(f"compact-main L={L}: N {N}, table {table_bytes / 2**30:.2f} GiB "
-          f"({table_bytes} bytes), torch build {t_build:.2f} s | torch "
-          f"sparse CSR H @ psi ({rec['nnz']} non-zeros, max|d|/max|y| "
-          f"{err:.1e}) {csr_ms:.3f} ms against ell {rec['real']['ms']:.3f} "
-          f"ms")
-    with _EllApplies() as n_gs:
+          f"({table_bytes} bytes), torch build {t_build:.2f} s")
+    ea.reset_ell_launch_count()
+    with _EllLaunches() as n_gs:
         (E0, psi, info), t_gs = sync_time(
             lambda: pt.lanczos_groundstate_restarted(
                 mv, N=N, lanc_m=40, cycles=6, target_residual=1e-3,
                 generator=torch.Generator(device=dev).manual_seed(0)))
-    with _EllApplies() as n_kpm:
+    with _EllLaunches() as n_kpm:
         K, t_kpm = sync_time(lambda: pt.kpm_sqw(
             psi, m, qs, omega, a=kinfo["a"], b=kinfo["b"], kpm_m=100,
             E0=E0_main, matvec=mv).cpu().numpy())
-    with _EllApplies() as n_sqw:
+    with _EllLaunches() as n_sqw:
         S, t_sqw = sync_time(lambda: pt.lanczos_sqw(
             psi, m, qs, omega, lanc_m=60, eta=0.1, matvec=mv))
     del psi, mv
     torch.cuda.empty_cache()
     me = _compact_model(L, "xxz")
-    with _EllApplies() as n_ev:
+    with _EllLaunches() as n_ev:
         (psi_t, obs), t_ev = sync_time(lambda: pt.evolve_trajectory(
             me, pt.domain_wall_state(me, device=dev), dt=0.1, n_steps=5,
             cheb_n=40, Ebounds=einfo["Ebounds"]))
@@ -2124,18 +2200,23 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     dE = abs(E0 - E0_main)
     dK = float(np.abs(K - S_main).max()) / float(np.abs(S_main).max())
     dS = float(np.abs(obs - einfo["obs"]).max())
+    solves = {"ground_state": n_gs, "kpm_sqw": n_kpm,
+              "lanczos_sqw": n_sqw, "trajectory": n_ev}
     rec.update(ground_state_s=t_gs, kpm_s=t_kpm, lanczos_sqw_s=t_sqw,
                trajectory_s=t_ev, peak_bytes=peak, E0=E0,
-               applies={"ground_state": n_gs.n, "kpm_sqw": n_kpm.n,
-                        "lanczos_sqw": n_sqw.n, "trajectory": n_ev.n})
+               applies={k: c.n for k, c in solves.items()},
+               launches={k: c.launches for k, c in solves.items()},
+               ell_launches=ea.ell_launch_count())
     print(f"compact-main L={L}: E0 {E0:.6f} (kron {E0_main:.6f}, |d| "
           f"{dE:.2e} <= 1e-4) residual {info['residual']:.3e} cycles "
           f"{info['cycles']} polished {info.get('polished', 0)} | ground "
           f"state {t_gs:.2f} s ({n_gs.n} applies), kpm_sqw (3 q x 100, "
           f"main's a, b) {t_kpm:.2f} s ({n_kpm.n}), lanczos_sqw (3 q x 60) "
           f"{t_sqw:.2f} s ({n_sqw.n}), trajectory (5 steps, evolve's bounds) "
-          f"{t_ev:.2f} s ({n_ev.n}) | peak {peak / 2**30:.2f} GiB (with "
-          f"the CSR matrix {rec['peak_with_csr_bytes'] / 2**30:.2f} GiB)")
+          f"{t_ev:.2f} s ({n_ev.n}) | ell kernel launches "
+          f"{rec['launches']}, one an apply | peak {peak / 2**30:.2f} GiB "
+          f"(with the CSR matrix "
+          f"{rec['kernel']['peak_with_csr_bytes'] / 2**30:.2f} GiB)")
     print(f"compact-main L={L}: kpm_sqw against main's kpm_sqw_kron, max "
           f"|dS| / max S {dK:.2e} (<= 5e-2; two ground states, each to "
           f"residual 1e-3) | lanczos_sqw max {S.max():.4f}, row weights "
@@ -2157,34 +2238,6 @@ def phase_compact_main(L, dev, E0_main, S_main, kinfo, einfo):
     if not abs(norm - 1.0) <= 1e-4:
         raise RuntimeError(f"compact trajectory norm {norm}")
     return rec
-
-
-def phase_ell_chunks(L, dev):
-    """(--ell-chunks) The ell apply's time at L for row chunks of 2^16 ..
-    2^22 (the default ELL_CHUNK is 2^20), float32 and complex64, each held
-    to the default chunk's result (the same sums, 1e-6 of max|y|: gemv
-    may block its rows by their count)."""
-    import spindynamics_tpu_torch as pt
-    from spindynamics_tpu_torch.ops import apply as ap
-
-    m = _compact_model(L)
-    mv = pt.matvec_fn(m, device=dev)
-    for cplx in (False, True):
-        x = _flat_state(m, dev, cplx, L)
-        want = mv(x)
-        rows = []
-        for k in range(16, 23, 2):
-            def f():
-                return ap.apply_H_ell(x, m, mv.nbr, mv.diag, chunk=1 << k)
-
-            rel = float((f() - want).abs().max()) / float(
-                want.abs().max())
-            if not rel <= 1e-6:
-                raise RuntimeError(f"chunk 2^{k}: off the default chunk by "
-                                   f"{rel:.2e}")
-            rows.append(f"2^{k}: {event_ms(f, reps=5):.3f} ms")
-        print(f"ell-chunks L={L} {'complex' if cplx else 'real'}: "
-              + " | ".join(rows))
 
 
 def _exact_thermal(m, beta, a, b, ts, dev):
@@ -3732,7 +3785,6 @@ def main(argv=None):
                          "shard-evolve phases (>= 2)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k3-tiles", action="store_true", dest="k3_tiles")
-    ap.add_argument("--ell-chunks", action="store_true", dest="ell_chunks")
     ap.add_argument("--kron-tiles", action="store_true", dest="kron_tiles")
     ap.add_argument("--examples-full", action="store_true",
                     dest="examples_full",
@@ -3751,6 +3803,9 @@ def main(argv=None):
     ap.add_argument("--dot2-only", action="store_true", dest="dot2_only",
                     help="build the kernels and run the dot2 phase alone "
                          "at --L; no result line")
+    ap.add_argument("--ell-only", action="store_true", dest="ell_only",
+                    help="build the kernels and run the ell phase alone at "
+                         "--L-compact; no result line")
     ap.add_argument("--bf16-steps", action="store_true", dest="bf16_steps",
                     help="the float32 and bfloat16 trajectories at --L and "
                          "the launches of one term of each; no result line")
@@ -3774,10 +3829,12 @@ def main(argv=None):
 
     phase_build()
     if args.shard_flat or args.bf16_steps or args.bench_only or \
-            args.dot2_only:
+            args.dot2_only or args.ell_only:
         # measurements of one part, not the smoke: no result line
         if args.dot2_only:
             print(json.dumps({"dot2": phase_dot2(args.L, dev)}))
+        if args.ell_only:
+            print(json.dumps({"ell_kernel": phase_ell(args.L_compact, dev)}))
         if args.bench_only:
             print(json.dumps(phase_bench()))
         if args.shard_flat:
@@ -3832,8 +3889,7 @@ def main(argv=None):
     ref = ((E0, S_main, kinfo, einfo) if args.L_compact == args.L
            else kron_references(args.L_compact, dev))
     ell = phase_compact_main(args.L_compact, dev, *ref)
-    if args.ell_chunks:
-        phase_ell_chunks(args.L_compact, dev)
+    ellk = ell["kernel"]
     typ = phase_flat_typicality(args.L_flat, dev)
     phase_checkpoint(dev)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -3998,6 +4054,23 @@ def main(argv=None):
         **{k: v for k, v in dot2.items()
            if k not in ("max_abs_err", "ms", "plain_ms", "bound",
                         "library_ms", "L")},
+    }, {
+        "name": "ell H apply (int32 neighbour table)",
+        "route": "cuda",
+        "source": "spindynamics_tpu_torch/csrc/ell_apply.cu",
+        "replaces": "spindynamics_tpu/ops/apply.py (the ell backend)",
+        "replaces_note": "no pl.pallas_call: an XLA gather in the JAX "
+                         "package",
+        "launches": ell["ell_launches"],
+        "max_rel_err": ellk["float32"]["errors"]["kernel"],
+        "ms": ellk["float32"]["ms"],
+        "plain_ms": ellk["float32"]["plain_ms"],
+        "bound_ms": ellk["float32"]["bound_ms"],
+        "bound_by": ellk["float32"]["bound_by"],
+        "library_ms": ellk["float32"]["library_ms"],
+        "library": "torch sparse CSR H @ psi of the same matrix",
+        "L": args.L_compact,
+        "complex64": ellk["complex64"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

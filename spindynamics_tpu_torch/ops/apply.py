@@ -12,9 +12,11 @@ Backends of `apply_H`:
                 is the counterpart of the JAX package's 'pallas' backend,
                 which is the TPU's name.
   - 'ell'     : `apply_H_ell`, the gather over the ELL neighbour table of a
-                compact model (or a full one built with a table), plain
-                torch on every device: the JAX package computes it with an
-                XLA gather, not a Pallas kernel.
+                compact model (or a full one built with a table): on a
+                CUDA state the hand-written kernel of ops/ell_apply.py
+                (csrc/ell_apply.cu), on a CPU state its plain torch
+                version. The JAX package computes it with an XLA gather,
+                not a Pallas kernel.
   - 'sector_blocked' : ops/sector_blocked.apply_H_sector_blocked, the
                 matrix products and row gathers of a sector_blocked model,
                 plain torch on every device (XLA code in the JAX package).
@@ -23,16 +25,16 @@ Backends of `apply_H`:
                 (XLA code in the JAX package).
 
 backend=None routes as the JAX package does: a compact model, and a full
-one with a neighbour table, go to 'ell' on any device and in any dtype
-(float64 on the card included: no kernel is involved), a sector_blocked
-model to 'sector_blocked' likewise. Otherwise a CUDA float32/complex64
-state goes to K3, a CPU state to 'blocked'. One rule sends a CUDA state
-elsewhere: below K3's floor (`fused_supported`: L < 6) it goes to
-'blocked'. Nothing else does: a CUDA float64/complex128 state of a full or
-embedded model with backend=None raises and names backend="blocked" (the
-JAX kernel computes such a state in float32 and casts back, which the port
-does not copy), and so does a model with more bonds than K3's lists hold
-(`make_fused_plan`).
+one with a neighbour table, go to 'ell' on any device and in any dtype (the
+ell kernel takes float32, complex64, float64 and complex128 states), a
+sector_blocked model to 'sector_blocked' likewise. Otherwise a CUDA
+float32/complex64 state goes to K3, a CPU state to 'blocked'. One rule
+sends a CUDA state elsewhere: below K3's floor (`fused_supported`: L < 6)
+it goes to 'blocked'. Nothing else does: a CUDA float64/complex128 state of
+a full or embedded model with backend=None raises and names
+backend="blocked" (the JAX kernel computes such a state in float32 and
+casts back, which the port does not copy), and so does a model with more
+bonds than K3's lists hold (`make_fused_plan`).
 
 The functional `apply_H` builds what its backend needs (K3's tables, the
 N-sized diagonal, the dense matrix) for that one apply; `FlatHamiltonian`
@@ -60,6 +62,7 @@ from ..model import FLAT_MODES, SpinModel, sector_setup
 from ..utils.device import resolve_device
 from ..utils.dtypes import real_dtype
 from .blocked import apply_H_blocked, make_blocked_plan
+from .ell_apply import ELL_CHUNK, ell_apply, ell_apply_plain
 from .fused_matvec import (
     FusedCall, fused_matvec_apply, fused_supported, fused_tables,
     make_fused_plan)
@@ -86,10 +89,6 @@ _MODE_BACKENDS = {
     "compact": ("dense", "ell"),
     "sector_blocked": ("dense", "ell", "sector_blocked"),
 }
-# rows of the ELL table gathered at once: the [rows, n_bonds] temporary
-# stays ~0.1 GB (float32) whatever N, where the JAX package gathers the
-# whole [N, n_bonds] matrix (4 GiB in float32 at L=28)
-ELL_CHUNK = 1 << 20
 # FlatHamiltonian's buffer prefixes of K3's tables: float32, complex64 plan
 _K3_PREFIX = {False: "k3_", True: "k3c_"}
 # ... and of the sector_blocked tables
@@ -132,16 +131,18 @@ def apply_H_ell(psi: torch.Tensor, model: SpinModel,
                 chunk: int = ELL_CHUNK) -> torch.Tensor:
     """Gather matvec over the ELL neighbour table:
     out[n] = diag[n] psi[n] + sum_b Jxy_b psi[nbr[n, b]] (nbr = -1: no
-    bond). Plain torch on psi's device, in psi's dtype.
+    bond), on psi's device, in psi's dtype: the ell kernel on a CUDA state
+    (one launch, one read of the table), its plain version on a CPU state
+    (ops/ell_apply.py).
 
     Where the JAX package gathers the whole [N, n_bonds] matrix and
-    multiplies by hop_J, this gathers ELL_CHUNK rows of the table at a time
-    from psi with one zero appended (an index of -1 reads it: indexing
-    wraps negative indices) and adds that block times hop_J into the rows
-    (addmv). The bonds are summed in another order than the JAX package's,
-    so the two agree to rounding. `nbr` and `diag` default to the model's
-    (sector_setup on psi's device, built for this one apply: keep a
-    FlatHamiltonian for repeated applies)."""
+    multiplies by hop_J, the plain version gathers `chunk` rows of the
+    table at a time and adds each block times hop_J into its rows (addmv);
+    the kernel sums each row in a fixed order. Either sums the bonds in
+    another order than the JAX package's, so they agree to rounding.
+    `nbr` and `diag` default to the model's (sector_setup on psi's device)
+    and the couplings are copied to psi's device, all for this one apply:
+    keep a FlatHamiltonian for repeated applies."""
     want_table = nbr is None and model.n_bonds > 0
     if want_table and not model.neighbor_table:
         raise ValueError("model has no ELL neighbour table "
@@ -151,21 +152,22 @@ def apply_H_ell(psi: torch.Tensor, model: SpinModel,
                                         real_dtype(psi.dtype), want_table)
         diag = diag_m if diag is None else diag
         nbr = nbr_m if want_table else nbr
-    out = psi * diag.to(real_dtype(psi.dtype))
-    if nbr is None or nbr.shape[1] == 0:
-        return out
-    ext = torch.cat([psi, psi.new_zeros(1)])
-    J = torch.as_tensor(model.hop_J, device=psi.device).to(psi.dtype)
-    _ell_accumulate(out, ext, nbr, J, chunk)
-    return out
+    J = torch.as_tensor(model.hop_J, dtype=real_dtype(psi.dtype),
+                        device=psi.device)
+    return _ell(psi, nbr, diag, J, chunk)
 
 
-def _ell_accumulate(out, ext, nbr, J, chunk: int):
-    """out[r] += sum_b J_b ext[nbr[r, b]], `chunk` rows of the table at a
-    time: one gather of a [chunk, n_bonds] block and one addmv (the ell
-    apply's loop, and the sharded applies' of parallel/sharded_apply)."""
-    for s0 in range(0, nbr.shape[0], chunk):
-        out[s0:s0 + chunk].addmv_(ext[nbr[s0:s0 + chunk]], J)
+def _ell(psi, nbr, diag, J, chunk: int = ELL_CHUNK) -> torch.Tensor:
+    """The ell apply's route: the kernel on a CUDA state (a table of no
+    columns where `nbr` is None, the diagonal and couplings in the state's
+    real dtype), the plain version elsewhere."""
+    if psi.device.type != "cuda":
+        return ell_apply_plain(psi, nbr, diag, J, chunk)
+    rdt = real_dtype(psi.dtype)
+    if nbr is None:
+        nbr = torch.empty((psi.shape[0], 0), dtype=torch.int32,
+                          device=psi.device)
+    return ell_apply(psi.contiguous(), nbr, diag.to(rdt), J.to(rdt))
 
 
 def _flat_backend(model: SpinModel, backend: str | None,
@@ -283,16 +285,20 @@ class FlatHamiltonian(nn.Module):
     'sector_blocked'; otherwise the card gives 'fused', or 'blocked' below
     K3's floor of L = 6, and the CPU gives 'blocked'). K3's plan tables,
     the blocked and tensor applies' N-sized diagonal, the ell apply's
-    states, diagonal and int32 ELL table (sector_setup: the torch build on
-    the card, the host build on the CPU), the sector_blocked apply's
-    states, diagonal and tables (buffers `sb_*`) or the dense matrix are
-    registered buffers, so `.to(device)` moves them; the diagonal, the real
-    tables and the dense matrix are stored in `dtype` (default the
-    model's). A blocked or tensor module applied to a state of another
-    precision rebuilds its diagonal in that one; an ell or sector_blocked
-    module casts its diagonal and couplings to the state's dtype, as the
-    JAX package does. A 'fused' module takes float32 and complex64 CUDA
-    states, with one K3 plan per element type (the default tile is 32 KB:
+    states, diagonal, int32 ELL table (sector_setup: the torch build on
+    the card, the host build on the CPU) and couplings (`hop_J`, made once
+    here, so that no apply copies them from the host), the sector_blocked
+    apply's states, diagonal and tables (buffers `sb_*`) or the dense
+    matrix are registered buffers, so `.to(device)` moves them; the
+    diagonal, the real tables, the couplings and the dense matrix are
+    stored in `dtype` (default the model's). A blocked or tensor module
+    applied to a state of another precision rebuilds its diagonal in that
+    one; an ell or sector_blocked module casts its diagonal and couplings
+    to the state's dtype, as the JAX package does. An 'ell' module
+    launches the ell kernel once per apply on a CUDA state of any of its
+    four dtypes, and runs its plain version on a CPU state. A 'fused'
+    module takes float32 and complex64 CUDA states, with one K3 plan per
+    element type (the default tile is 32 KB:
     2^13 float32, 2^12 complex64 amplitudes), its tables buffers `k3_*` and
     `k3c_*`; on a CPU state it runs K3's plain version, as the wrapper
     does.
@@ -341,12 +347,15 @@ class FlatHamiltonian(nn.Module):
                                      dtype=dtype or model.dtype,
                                      device=device), persistent=False)
         elif backend == "ell":
-            states, diag, nbr = sector_setup(
-                model, device, real_dtype(dtype or model.dtype),
-                want_table=model.n_bonds > 0)
+            rdt = real_dtype(dtype or model.dtype)
+            states, diag, nbr = sector_setup(model, device, rdt,
+                                             want_table=model.n_bonds > 0)
             self.register_buffer("states", states, persistent=False)
             self.register_buffer("diag", diag, persistent=False)
             self.register_buffer("nbr", nbr, persistent=False)
+            self.register_buffer(
+                "hop_J", torch.as_tensor(model.hop_J, dtype=rdt,
+                                         device=device), persistent=False)
         elif backend == "sector_blocked":
             rdt = real_dtype(dtype or model.dtype)
             self.layout = make_sector_blocked_layout(model)
@@ -424,7 +433,7 @@ class FlatHamiltonian(nn.Module):
         if self.backend == "dense":
             return apply_H_dense(psi, self.H.to(real_dtype(psi.dtype)))
         if self.backend == "ell":
-            return apply_H_ell(psi, self.model, self.nbr, self.diag)
+            return _ell(psi, self.nbr, self.diag, self.hop_J)
         if self.backend == "sector_blocked":
             n = len(_SB_PREFIX)
             return apply_H_sector_blocked(

@@ -16,11 +16,15 @@ package:
   [own rows (B) | halo slab k = 1..D-1 (Hp each) | one zero]. No
   all-gather.
 
-Both gather each shard's rows through the chunked `addmv` of the unsharded
-apply (ops/apply.apply_H_ell), in the state's dtype, and are plain torch on
-every device: the JAX package's are shard_map programs of XLA gathers and
-products, not Pallas kernels. A LocalMesh holds the whole padded vector
-[Np] (shard d = rows [d*B, (d+1)*B)); a ProcessMesh rank its B rows.
+Both gather each shard's rows through the chunked `addmv` of the ell
+kernel's plain version (ops/ell_apply._ell_accumulate), in the state's
+dtype, and are plain torch on every device: the JAX package's are
+shard_map programs of XLA gathers and products, not Pallas kernels. The
+unsharded apply's CUDA kernel (csrc/ell_apply.cu) gathers from one state
+indexed by its table; these gather from an all-gathered or halo-extended
+array in another index space, and stay on their own path. A LocalMesh
+holds the whole padded vector [Np] (shard d = rows [d*B, (d+1)*B)); a
+ProcessMesh rank its B rows.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from torch import nn
 
 from ..model import FLAT_MODES, SpinModel, sector_setup
-from ..ops.apply import ELL_CHUNK, _ell_accumulate
+from ..ops.ell_apply import ELL_CHUNK, _ell_accumulate
 from ..utils.device import resolve_device
 from ..utils.dtypes import real_dtype
 from .mesh import ROWS

@@ -13,11 +13,11 @@ device-to-host read (`host_read`).
 
 Counters. `count(name, n)` adds to one registry of plain integers, always
 on: the kernels' launches (`launches.k1.<dtype>`, `launches.k1_crossw.
-<dtype>`, `launches.k2.<dtype>`, `launches.k3`, `launches.dot2`, read back
-by each kernel module's launch-count function), `applies.<route>`,
-`syncs`, `lanczos.cycles`, `lanczos.polish`, `kpm.moments`,
-`build.kron_tables` and `build.k1_descriptors`. `counters()` is a copy of
-the registry.
+<dtype>`, `launches.k2.<dtype>`, `launches.k3`, `launches.dot2`,
+`launches.ell.<dtype>`, read back by each kernel module's launch-count
+function), `applies.<route>`, `syncs`, `lanczos.cycles`, `lanczos.polish`,
+`kpm.moments`, `build.kron_tables` and `build.k1_descriptors`.
+`counters()` is a copy of the registry.
 
 The port's modules import this one inside the functions that use it, as
 they import their kernels' wrappers: importing the package loads none of

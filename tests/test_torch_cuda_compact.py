@@ -48,8 +48,9 @@ def test_card_build_equals_host_build(cuda_device, L, kind):
                                        (torch.float32, 1e-6)])
 @pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
 def test_ell_apply_on_card_matches_cpu(cuda_device, dtype, tol, cplx):
-    """The ell apply on the card (float64 included: no kernel) against the
-    CPU apply of the same vector, tol of max|y|; repeats bit-identical."""
+    """The ell apply on the card (the ell kernel, float64 included) against
+    the CPU apply of the same vector, tol of max|y|; repeats
+    bit-identical."""
     m = _model(16, "chain", dtype)
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(m.n_states, generator=g, device=cuda_device, dtype=dtype)
