@@ -11,11 +11,16 @@
   (`read(ctx)` returns a number, or None where it finds nothing to read).
 
 A later cell, mix, layout or metric is a new file and a new entry in
-BENCHMARK.json: nothing here names one.
+BENCHMARK.json: nothing here names one. A cell on C > 1 chips runs as C
+processes, one per device (perfbench/ranks.py): this one is rank 0, drives
+the mix and reports; the layout's System is built on every rank, and its
+`build_kernels()`, where it has one, runs here before the other ranks
+start. A one-chip cell starts no process and no process group.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from . import reference
+from .ranks import Proxy, Ranks, peak_bytes
 from .trace import Slice, analyze, warm_profiler
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,10 +94,35 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
         torch.cuda.set_device(device)
         torch.empty(0, device=device)  # the context, before its statistics
         torch.cuda.reset_peak_memory_stats(device)
+    body = functools.partial(_run, name, seed, seconds, trace, device, root,
+                             t_start, log, bench, cfg, traffic, mix, layout)
+    if w["chips"] == 1:
+        return body(None)
+    if cuda and hasattr(layout, "build_kernels"):
+        layout.build_kernels()  # once, before any other rank loads them
+    ranks = Ranks(root, name, w["chips"], device, log)
+    try:
+        ranks.start()
+        return body(ranks)
+    except Exception:
+        ranks.blame()  # a rank that died first is the cause, not this one
+        raise
+    finally:
+        ranks.kill()
 
+
+def _run(name, seed, seconds, trace, device, root, t_start, log, bench,
+         cfg, traffic, mix, layout, ranks) -> dict:
+    """`run` from the System's set-up on: `ranks` are the other ranks of a
+    cell on several chips, None on one."""
+    cuda = device.type == "cuda"
     system = layout.System(cfg, device)
     info = system.setup()
     log(f"set-up: {json.dumps(info)}")
+    if ranks is not None:
+        for r, i in ranks.ready().items():
+            log(f"rank {r} set-up: {json.dumps(i)}")
+        system = Proxy(system, ranks)
     slices = {}
     if trace:
         warm_profiler()
@@ -100,10 +131,16 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
                   for kind, (a, b) in traffic["trace"].items()}
     ctx = SimpleNamespace(system=system, cfg=cfg, traffic=traffic,
                           seed=seed, seconds=seconds, device=device,
-                          slices=slices, unit_seed=unit_seeds(seed), log=log)
+                          slices=slices, unit_seed=unit_seeds(seed), log=log,
+                          rank=0, world=1 if ranks is None else ranks.world,
+                          group=None if ranks is None else ranks.group)
     setup_s = time.perf_counter() - t_start
     res = mix.run(ctx)
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peak = peak_bytes(device)
+    if ranks is not None:  # the fullest device's
+        peaks = {0: peak, **ranks.peaks()}
+        log(f"peaks by rank: {json.dumps(peaks)}")
+        peak = max(peaks.values())
     log(f"window: {res['window_s']:.3f} s, units "
         f"{json.dumps([[u['kind'], u['wall_s']] for u in res['units']])}")
 
@@ -144,6 +181,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     system.close()
     del system
     ctx.system = None
+    if ranks is not None:
+        ranks.stop()
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -160,7 +199,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
            "device": dict({"platform": "gpu" if cuda else "cpu",
                            "kind": torch.cuda.get_device_name(device)
                            if cuda else "cpu",
-                           "count": 1, "memory_peak_bytes": int(peak)},
+                           "count": ctx.world,
+                           "memory_peak_bytes": int(peak)},
                           **dev_extra)}
     if breakdown is not None:
         out["breakdown"] = breakdown

@@ -2,10 +2,12 @@
 
     python3 perfbench/run.py --workload NAME --seed N --seconds S --trace 0|1
 
-Runs one cell of BENCHMARK.json in this process on the card(s) of this
-machine: set-up (the kernels built into the checkout's build/ where they
-are missing, the cell's model and apply on the card, every shape the
-window runs warmed once, the traffic's own set-up such as the KPM window),
+Runs one cell of BENCHMARK.json on the card(s) of this machine: in this
+process for a one-chip cell, as one process per card for a cell on C > 1
+chips (this one rank 0 on card 0, perfbench/ranks.py). Set-up (the kernels
+built into the checkout's build/ where they are missing, the cell's model
+and apply on the card, every shape the window runs warmed once, the
+traffic's own set-up such as the KPM window),
 then the window, units back to back for S seconds (the one in flight when
 they pass runs to its end), then the comparison with the float64
 reference, the program's state freed first. `--seed` draws each unit's
@@ -18,7 +20,8 @@ failed, metrics, device (and breakdown with --trace 1), then checks: each
 number compared with its limit, which are also the last lines on standard
 error. Without a CUDA device (or with fewer than the cell asks for), or
 when jax, jaxlib, flax or the JAX package are loaded once the window has
-closed, it prints no result and exits non-zero.
+closed (in this process or in another rank), or when another rank fails,
+it prints no result and exits non-zero.
 """
 
 import time
@@ -42,7 +45,10 @@ def loaded_banned() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
+    """The run; `device` None is the card path (cuda:0, the card checks),
+    a device such as "cpu" runs the port's plain versions there (the CPU
+    tests)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -55,6 +61,12 @@ def main(argv=None) -> int:
     for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / "perfbench_cache" / sub)
+    # one thread in the OpenMP and BLAS pools that torch and numpy start on
+    # import: their idle threads spin beside the one that launches and waits
+    # on the card, and a ground state's per-step host reads then drift by
+    # several percent for seconds at a time
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
 
     import torch
 
@@ -64,8 +76,8 @@ def main(argv=None) -> int:
     if w is None:
         print(f"perfbench: no workload {args.workload!r}", file=sys.stderr)
         return 2
-    if not torch.cuda.is_available() or (torch.cuda.device_count()
-                                         < w["chips"]):
+    if device is None and (not torch.cuda.is_available() or (
+            torch.cuda.device_count() < w["chips"])):
         print(f"perfbench: the cell needs {w['chips']} CUDA device(s), "
               f"this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
@@ -76,7 +88,9 @@ def main(argv=None) -> int:
     from perfbench import harness
 
     out = harness.run(args.workload, args.seed, args.seconds,
-                      bool(args.trace), torch.device("cuda", 0), ROOT,
+                      bool(args.trace),
+                      torch.device("cuda", 0) if device is None else device,
+                      ROOT,
                       T_START)
     bad = loaded_banned()
     if bad:
