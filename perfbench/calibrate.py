@@ -8,7 +8,8 @@ In one process on the card, at the cell's own size: for each seed, one
 ground-state unit and one row (q from the configuration's q_k in turn)
 through the program as the window runs them, then, with the program's
 state freed, the cell's comparison of each (the readings of sound runs);
-then the control on each control seed. `--control bf16`: the reference
+then the control on each control seed. The reference is the
+configuration's chain (harness.chain). `--control bf16`: the reference
 put in the program's place with bfloat16 storage, its restarted two-pass
 Lanczos (residual and E0 against the configuration) and its KPM row from
 the program's ground state of that seed with every T_n phi stored in
@@ -57,6 +58,7 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     _, w, cfg, traffic = harness.cell(ROOT, args.workload)
     layout = harness.load(ROOT, "layouts", cfg["model"]["layout"])
+    make_H = harness.chain(ROOT, cfg["model"])
     mo, g = cfg["model"], cfg["guarantees"]
     q_k = cfg["sqw"]["q_k"]
     lo, hi, n = cfg["sqw"]["omega"]
@@ -93,7 +95,7 @@ def main(argv=None) -> int:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    H = reference.BlockChain(mo["L"], mo["nup"], mo["Jxy"], mo["Jz"], dev)
+    H = make_H(dev)
     by_seed = {}
     for r in runs:
         t0 = time.perf_counter()

@@ -7,10 +7,13 @@
 - the configuration's layout in perfbench/layouts/<model.layout>.py (a
   `System`: `setup`, the units, `applies`, `to_host`, `probes`, `close`;
   and `reference_state`, a ground state in the reference's form);
+- the configuration's float64 reference H (`chain`): reference.BlockChain
+  for model.chain "xxz", else the `Chain` of
+  perfbench/chains/<model.chain>.py;
 - each per-layer metric's reader in perfbench/readers/<metric>.py
   (`read(ctx)` returns a number, or None where it finds nothing to read).
 
-A later cell, mix, layout or metric is a new file and a new entry in
+A later cell, mix, layout, chain or metric is a new file and a new entry in
 BENCHMARK.json: nothing here names one. A cell on C > 1 chips runs as C
 processes, one per device (perfbench/ranks.py): this one is rank 0, drives
 the mix and reports; the layout's System is built on every rank, and its
@@ -66,6 +69,19 @@ def cell(root: Path, name: str) -> tuple:
     return bench, w, cfg, traffic
 
 
+def chain(root: Path, model: dict):
+    """The configuration's float64 reference H, as a function of the
+    device: the nearest-neighbour XXZ chain of reference.py for
+    model["chain"] == "xxz", else `Chain(model, device)` of
+    perfbench/chains/<chain>.py (loaded here, so that a missing file ends
+    a run before its set-up)."""
+    if model["chain"] == "xxz":
+        return functools.partial(reference.BlockChain, model["L"],
+                                 model["nup"], model["Jxy"], model["Jz"])
+    return functools.partial(load(root, "chains", model["chain"]).Chain,
+                             model)
+
+
 def _applies(metric: dict, workload: str) -> bool:
     return workload in metric.get("workloads", [workload])
 
@@ -90,12 +106,14 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     bench, w, cfg, traffic = cell(root, name)
     mix = load(root, "mixes", traffic["mix"])
     layout = load(root, "layouts", cfg["model"]["layout"])
+    make_H = chain(root, cfg["model"])
     if cuda:
         torch.cuda.set_device(device)
         torch.empty(0, device=device)  # the context, before its statistics
         torch.cuda.reset_peak_memory_stats(device)
     body = functools.partial(_run, name, seed, seconds, trace, device, root,
-                             t_start, log, bench, cfg, traffic, mix, layout)
+                             t_start, log, bench, cfg, traffic, mix, layout,
+                             make_H)
     if w["chips"] == 1:
         return body(None)
     if cuda and hasattr(layout, "build_kernels"):
@@ -112,9 +130,10 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
 
 
 def _run(name, seed, seconds, trace, device, root, t_start, log, bench,
-         cfg, traffic, mix, layout, ranks) -> dict:
-    """`run` from the System's set-up on: `ranks` are the other ranks of a
-    cell on several chips, None on one."""
+         cfg, traffic, mix, layout, make_H, ranks) -> dict:
+    """`run` from the System's set-up on: `make_H` makes the reference H on
+    a device (`chain`); `ranks` are the other ranks of a cell on several
+    chips, None on one."""
     cuda = device.type == "cuda"
     system = layout.System(cfg, device)
     info = system.setup()
@@ -187,9 +206,8 @@ def _run(name, seed, seconds, trace, device, root, t_start, log, bench,
     if cuda:
         torch.cuda.empty_cache()
     ctx.layout = layout
-    mo = cfg["model"]
     t0 = time.perf_counter()
-    H = reference.BlockChain(mo["L"], mo["nup"], mo["Jxy"], mo["Jz"], device)
+    H = make_H(device)
     checks, failed = mix.check(ctx, res, H)
     log(f"comparison: {time.perf_counter() - t0:.3f} s")
     del H

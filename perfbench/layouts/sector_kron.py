@@ -30,22 +30,27 @@ def build_kernels() -> dict:
 
 class System:
     def __init__(self, cfg: dict, device):
-        import spindynamics_tpu_torch as pt
         from spindynamics_tpu_torch.ops.kron_group import KronHamiltonian
         from spindynamics_tpu_torch.ops.sector_kron import (
             make_sector_kron_layout)
 
-        mo = cfg["model"]
         self.cfg, self.device = cfg, torch.device(device)
-        self.dtype = getattr(torch, mo["state_dtype"])
-        self.model = pt.xxz_chain(mo["L"], Jxy=mo["Jxy"], Jz=mo["Jz"],
-                                  nup=mo["nup"], dtype=self.dtype,
-                                  layout="sector_kron")
+        self.dtype = getattr(torch, cfg["model"]["state_dtype"])
+        self.model = self.chain(cfg["model"], self.dtype)
         self.layout = make_sector_kron_layout(
             self.model, self.model.kron_splits, self.model.kron_pads)
         self.apply_type = KronHamiltonian
         self.window = None
         self._k1_per_apply = None
+
+    @staticmethod
+    def chain(mo: dict, dtype):
+        """The port's model of the configuration's chain (a layout for
+        another chain replaces this alone)."""
+        import spindynamics_tpu_torch as pt
+
+        return pt.xxz_chain(mo["L"], Jxy=mo["Jxy"], Jz=mo["Jz"],
+                            nup=mo["nup"], dtype=dtype, layout="sector_kron")
 
     # ---- set-up -----------------------------------------------------------
 

@@ -154,7 +154,8 @@ def check_shape(root) -> None:
 def check_cell(root, w: str) -> None:
     """The cell's files are there, its chips are 1 or 4 (the four-chip
     cells at most a quarter of the cells, rounded down, and one always),
-    and its configuration's reference energy is sound."""
+    and its configuration's reference energy is sound by its own chain
+    (whose file `ground_energy` loads)."""
     b, wl, cfg, traffic = harness.cell(root, w)
     c = next(c for c in b["configs"] if c["name"] == wl["config"])
     assert c["file"].startswith("perfbench/configs/")
@@ -168,14 +169,22 @@ def check_cell(root, w: str) -> None:
         assert (Path(root) / "perfbench" / sub / f"{name}.py").is_file()
     g, mo = cfg["guarantees"], cfg["model"]
     assert g["residual_target"] == cfg["groundstate"]["target_residual"]
-    if mo["L"] <= 16:  # a cut tree: the reference's own ground state
-        H = reference.BlockChain(mo["L"], mo["nup"], mo["Jxy"], mo["Jz"],
-                                 "cpu")
-        E0, _, _ = reference.ground_state(
-            H, torch.Generator().manual_seed(0), tol=1e-10)
-        assert abs(g["E0_ref"] - E0) < 1e-6
-    else:
+    if mo["L"] <= 16:  # a cut tree: its chain's own ground state
+        assert abs(g["E0_ref"] - ground_energy(root, mo)) < 1e-6
+    elif mo["chain"] == "xxz" and mo["Jxy"] == mo["Jz"] == 1:
         assert abs(g["E0_ref"] / mo["L"] + 0.74) < 0.01
+    else:  # any other chain or coupling: near its own E0 / L at L=16
+        e16 = ground_energy(root, dict(mo, L=16, nup=8)) / 16
+        assert abs(g["E0_ref"] / mo["L"] - e16) <= 0.02, (g["E0_ref"], e16)
+
+
+def ground_energy(root, model: dict) -> float:
+    """The reference ground-state energy of the configuration's chain
+    (harness.chain) on the CPU: float64, residual 1e-10, seed 0."""
+    H = harness.chain(root, model)("cpu")
+    E0, _, _ = reference.ground_state(H, torch.Generator().manual_seed(0),
+                                      tol=1e-10)
+    return E0
 
 
 def check_all(root) -> None:

@@ -16,12 +16,16 @@ import pytest
 from _perfbench_tree import REPO, small_tree
 from perfbench import harness, run as run_mod
 
-CELLS = ["kron_gs_kpm_L32", "compact_gs_kpm_L28"]
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
 def _bench(root):
     return json.loads((Path(root) / "BENCHMARK.json").read_text())
+
+
+# the manifest's one-chip cells (a cell on several chips runs on ranks:
+# test_perfbench_ranks.py)
+CELLS = [w["name"] for w in _bench(REPO)["workloads"] if w["chips"] == 1]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -109,8 +113,8 @@ def _add_fake_cell(root, sleep, reader=None):
     pb = Path(root) / "perfbench"
     (pb / "layouts" / "fake.py").write_text(FAKE_LAYOUT)
     (pb / "mixes" / "fake_mix.py").write_text(FAKE_MIX_CHECK)
-    cfg = {"model": {"layout": "fake", "L": 4, "nup": 2, "Jxy": 1.0,
-                     "Jz": 1.0},
+    cfg = {"model": {"layout": "fake", "chain": "xxz", "L": 4, "nup": 2,
+                     "Jxy": 1.0, "Jz": 1.0},
            "sqw": {"q_k": [1]}, "sleep": sleep}
     (pb / "configs" / "fake.json").write_text(json.dumps(cfg))
     (pb / "traffic" / "fake.json").write_text(json.dumps(
@@ -176,8 +180,8 @@ FAULTS = {
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_a_wrong_answer_fails(name, fault, small_root, monkeypatch):
-    layout = harness.load(small_root, "layouts",
-                          "sector_kron" if "kron" in name else "compact")
+    _, _, cfg, _ = harness.cell(small_root, name)
+    layout = harness.load(small_root, "layouts", cfg["model"]["layout"])
     meth, spoil = FAULTS[fault]
     orig = getattr(layout.System, meth)
     monkeypatch.setattr(layout.System, meth,
